@@ -5,14 +5,19 @@
 Phase 0 prints the card's name and power limit and builds every CUDA
 kernel of the port from ``plvs_tpu_torch/csrc`` (one nvcc per source, all
 started together). Phase 1 holds each kernel against its plain PyTorch
-version on the card (exact equality: both functions are integer) at the
-shapes the main path gives it plus ragged and adversarial inputs, and
-times both with CUDA events. Phase 2 drives the port's main path —
+version on the card (exact equality: K1 and K2 are integer functions, and
+K3 rounds its few float steps once each in the same order as its plain
+version) at the shapes the main paths give it plus ragged and adversarial
+inputs, and times both with CUDA events. Phase 2 drives slice 1's path —
 ``System.track_rgbd``, synchronous RGB-D tracking with points and lines at
 640x480, 1024 ORB features, 8 levels, 160 keylines, keyframe backend off —
 over bench.py's structured-wall scene, with every launch counter set to 0
 just before and read just after, and checks that every frame is tracked
-and the trajectory's ATE is within the bound below.
+and the trajectory's ATE is within the bound below. Phase 3 drives slice
+2's path the same way — ``System.track_stereo`` on rectified pairs of the
+same scene (the right image one baseline to the right) with dense TSDF
+mapping and per-keyframe incremental meshing — and checks tracking, ATE,
+one K3 launch per keyframe, and the dense map against the JAX package's.
 
 It prints one ``{"kernels": [...]}`` line and ends with one
 ``{"ok": true, "device": {...}}`` line. Any failed phase exits non-zero; so
@@ -22,6 +27,7 @@ file. Imports nothing of jax or plvs_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -37,6 +43,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # max(1.5 x it, it + 1 cm)
 REF_ATE_M = 0.0029674518356454585
 ATE_BOUND_M = max(1.5 * REF_ATE_M, REF_ATE_M + 0.01)
+
+# JAX package's figures on phase 3's stereo dense-mapping run (CPU run of
+# scripts/reference_ate_stereo_dense.py, 120 frames: all OK, 12 keyframes,
+# 3275 points, 42 lines, 3788 blocks). The port is held to the ATE bound
+# below, the occupied-voxel and mesh-triangle counts within +-25%, and the
+# median |z - 3 m| of the occupied centroids within the JAX value + 2 cm.
+# (The JAX package's CPU path computes disparity with its jnp volume, whose
+# border semantics differ from the TPU kernel's, which K3 follows.)
+REF_STEREO_ATE_M = 0.01587924036181696
+STEREO_ATE_BOUND_M = max(1.5 * REF_STEREO_ATE_M, REF_STEREO_ATE_M + 0.01)
+REF_OCCUPIED_VOXELS = 207861
+REF_MEDIAN_ABS_DZ_M = 0.029999971389770508
+REF_MESH_TRIANGLES_FULL = 413390
+REF_MESH_TRIANGLES_INCREMENTAL = 231664
+WALL_Z = 3.0
 
 N_FRAMES = 120
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -69,6 +90,26 @@ def _bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class _SyncStopwatch:
+    """Stage timer for DenseMapper.stopwatch: each scope is synchronised at
+    both ends and its host milliseconds kept under its name."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms = {}
+
+    @contextlib.contextmanager
+    def scope(self, name: str):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.torch.cuda.synchronize()
+            self.ms.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
 
 
 def _scene(cam, synthetic):
@@ -138,6 +179,83 @@ def _adversarial_grids(h: int, w: int, rng):
     return grids
 
 
+def _phase3(torch, cam, scene) -> dict:
+    """Slice 2's main path: rectified stereo tracking with dense TSDF
+    mapping and per-keyframe incremental meshing; returns the launches."""
+    from plvs_tpu_torch.io import evaluation
+    from plvs_tpu_torch.ops import cc_labels, hamming, stereo
+    from plvs_tpu_torch.slam import System, SystemConfig
+    from plvs_tpu_torch.slam.tracking import OK
+
+    cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
+                       max_pts=65536, use_lines=True, max_lines=160,
+                       sensor="stereo", local_ba=False, loop_closing=False,
+                       dense_mapping=True, dense_voxel_size=0.02,
+                       dense_mesh_every=1, pipelined=False)
+    system = System(cam, cfg, device="cuda")
+    watch = _SyncStopwatch(torch)
+    system.dense_mapper.stopwatch = watch
+    shift = np.array([cam.bf / float(cam.params[0]), 0.0, 0.0], np.float32)
+    frames = [(ts, g, scene.render(R, t - shift)[0], R, t)
+              for ts, g, _, R, t in scene.sequence(n_frames=N_FRAMES)]
+    hamming.launches = cc_labels.launches = stereo.launches = 0
+    states, ms = [], []
+    for ts, gl, gr, _, _ in frames:
+        t1 = time.perf_counter()
+        state, _, _ = system.track_stereo(gl, gr, ts)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        states.append(int(state))
+    launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
+                "stereo_wta": stereo.launches}
+    est = system.trajectory_tum()[:, 1:4]
+    gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
+    ate = evaluation.ate_rmse(est, gt, align=True)
+    stats = system.map_statistics()
+    n_kf = stats["keyframes"]
+    dm = system.dense_mapper
+    pts, _ = dm.cloud()
+    med_dz = float(np.median(np.abs(pts[:, 2] - WALL_Z))) if len(pts) else 1e9
+    _, faces = dm.mesh()
+    n_full, n_inc = len(faces), dm.mesher.n_triangles
+    steady = np.asarray(ms[1:])
+    per_kf = {k: sum(v) / max(n_kf, 1) for k, v in sorted(watch.ms.items())}
+    print(f"phase 3: {N_FRAMES} stereo frames 640x480, per-frame ms p50 "
+          f"{np.percentile(steady, 50):.2f} p90 {np.percentile(steady, 90):.2f} "
+          f"(first frame {ms[0]:.1f}; keyframe frames include the "
+          f"synchronised dense stage); map {stats}; ATE-RMSE {ate:.6f} m "
+          f"(JAX {REF_STEREO_ATE_M:.6f} m, bound {STEREO_ATE_BOUND_M:.6f} m); "
+          f"launches {launches}")
+    print("phase 3: dense stage ms per keyframe "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per_kf.items())
+          + f"; remeshed blocks {dm.remesh_counts}")
+    print(f"phase 3: dense map: {dm.volume.n_blocks} blocks, {len(pts)} "
+          f"occupied voxels (JAX {REF_OCCUPIED_VOXELS}), median |z - "
+          f"{WALL_Z}| {med_dz:.6f} m (JAX {REF_MEDIAN_ABS_DZ_M:.6f}), mesh "
+          f"triangles full {n_full} (JAX {REF_MESH_TRIANGLES_FULL}) "
+          f"incremental cache {n_inc} (JAX {REF_MESH_TRIANGLES_INCREMENTAL})")
+    if not all(s == OK for s in states[1:]):
+        _fail(f"phase 3 tracking states {states}")
+    if not np.isfinite(est).all() or ate > STEREO_ATE_BOUND_M:
+        _fail(f"phase 3 ATE {ate} m exceeds the bound {STEREO_ATE_BOUND_M} m")
+    if launches["stereo_wta"] != n_kf:
+        _fail(f"K3 launched {launches['stereo_wta']} times for {n_kf} "
+              "keyframes")
+    if (launches["hamming"] < 2 * N_FRAMES
+            or launches["cc_labels"] < 2 * N_FRAMES):
+        _fail(f"K1 / K2 launched {launches} times in {N_FRAMES} frames")
+    for name, got, ref in (
+            ("occupied voxels", len(pts), REF_OCCUPIED_VOXELS),
+            ("full mesh triangles", n_full, REF_MESH_TRIANGLES_FULL),
+            ("incremental mesh triangles", n_inc,
+             REF_MESH_TRIANGLES_INCREMENTAL)):
+        if abs(got - ref) > 0.25 * ref:
+            _fail(f"phase 3 {name} {got} not within 25% of JAX's {ref}")
+    if med_dz > REF_MEDIAN_ABS_DZ_M + 0.02:
+        _fail(f"phase 3 median |z - {WALL_Z}| {med_dz} m: the wall is off")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -153,7 +271,8 @@ def main() -> int:
     from plvs_tpu_torch.features import lines as lines_mod
     from plvs_tpu_torch.geometry import cameras
     from plvs_tpu_torch.io import evaluation, synthetic
-    from plvs_tpu_torch.ops import _build, cc_labels, hamming
+    from plvs_tpu_torch.dense import stereo_depth
+    from plvs_tpu_torch.ops import _build, cc_labels, hamming, stereo
     from plvs_tpu_torch.slam import System, SystemConfig
     from plvs_tpu_torch.slam.system import _quantize
     from plvs_tpu_torch.slam.tracking import OK
@@ -260,7 +379,56 @@ def main() -> int:
           f"{k2_plain_ms:.4f} ms, bound {k2_bound:.6f} ms ({k2_by}); no "
           "single PyTorch call computes connected components")
 
-    # -- phase 2: the port's main path -------------------------------------
+    # K3 at the main-path shape (the census of a rendered 480x640 pair,
+    # D = 64), random words, a textureless pair, and ragged / wide shapes
+    baseline = cam.bf / float(cam.params[0])
+    gr0, _ = scene.render(R0, t0_ - np.array([baseline, 0.0, 0.0], np.float32))
+    cl0 = stereo_depth.census_transform(torch.from_numpy(g0).to(dev))
+    cr0 = stereo_depth.census_transform(torch.from_numpy(gr0).to(dev))
+
+    def census_words(h, w):
+        return torch.from_numpy(rng.integers(0, 2 ** 32, (h, w),
+                                             dtype=np.uint64).astype(
+            np.uint32).view(np.int32)).to(dev)
+
+    flat = stereo_depth.census_transform(torch.zeros((480, 640), device=dev))
+    k3_cases = [("rendered_480x640_d64", cl0, cr0, 64),
+                ("random_480x640_d64", census_words(480, 640),
+                 census_words(480, 640), 64),
+                ("textureless_480x640_d64", flat, flat, 64),
+                ("ragged_37x150_d16", census_words(37, 150),
+                 census_words(37, 150), 16),
+                ("random_481x641_d64", census_words(481, 641),
+                 census_words(481, 641), 64),
+                ("rendered_480x640_d128", cl0, cr0, 128)]
+    k3_err = 0.0
+    for name, cl, cr, d in k3_cases:
+        got = stereo.disparity_wta(cl, cr, max_disp=d)
+        ref = stereo.disparity_wta_plain(cl, cr, max_disp=d)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        same_invalid = torch.equal(got < 0, ref < 0)
+        k3_err = max(k3_err, err)
+        print(f"phase 1: K3 disparity_wta {name}: max_abs_err {err}, same "
+              f"invalid pixels {same_invalid}, valid share "
+              f"{float((got >= 0).float().mean()):.4f}")
+        if err or not same_invalid:
+            _fail(f"K3 disagrees with its plain version on {name}")
+        if name.startswith("textureless") and bool((got >= 0).any()):
+            _fail("K3 kept pixels of a textureless pair")
+    k3_ms = _time_ms(torch, lambda: stereo.disparity_wta(cl0, cr0))
+    k3_plain_ms = _time_ms(torch, lambda: stereo.disparity_wta_plain(cl0, cr0),
+                           reps=10)
+    h3, w3 = cl0.shape
+    # bytes: census in + disparity out; operations: XOR+popcount, the
+    # separable (2r+1) + (2r+1) box additions and ~3 compares per (y, x, d)
+    k3_bound, k3_by = _bound_ms(3 * 4 * h3 * w3,
+                                h3 * w3 * 64 * (1 + 2 * 7 + 3))
+    print(f"phase 1: K3 at {h3}x{w3}x64: kernel {k3_ms:.4f} ms, plain "
+          f"{k3_plain_ms:.4f} ms, bound {k3_bound:.6f} ms ({k3_by}); no "
+          "single PyTorch call computes census-stereo winner-take-all")
+
+    # -- phase 2: slice 1's main path (RGB-D tracking) ---------------------
     cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
                        max_pts=65536, use_lines=True, max_lines=160,
                        local_ba=False, loop_closing=False,
@@ -268,8 +436,7 @@ def main() -> int:
                        depth_upload_decimation=2)
     system = System(cam, cfg, device="cuda")
     frames = list(scene.sequence(n_frames=N_FRAMES))
-    hamming.launches = 0
-    cc_labels.launches = 0
+    hamming.launches = cc_labels.launches = stereo.launches = 0
     states, ms = [], []
     for ts, g, d, _, _ in frames:
         t1 = time.perf_counter()
@@ -277,7 +444,8 @@ def main() -> int:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t1) * 1e3)
         states.append(int(state))
-    launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches}
+    launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
+                "stereo_wta": stereo.launches}
     est = system.trajectory_tum()[:, 1:4]
     gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
     ate = evaluation.ate_rmse(est, gt, align=True)
@@ -295,6 +463,8 @@ def main() -> int:
     if not np.isfinite(est).all() or ate > ATE_BOUND_M:
         _fail(f"ATE {ate} m exceeds the bound {ATE_BOUND_M} m")
 
+    launches3 = _phase3(torch, cam, scene)
+
     kernels = [
         {"name": "hamming_matrix", "route": "cuda",
          "source": "plvs_tpu_torch/csrc/hamming.cu",
@@ -308,6 +478,12 @@ def main() -> int:
          "launches": launches["cc_labels"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
+        {"name": "disparity_wta", "route": "cuda",
+         "source": "plvs_tpu_torch/csrc/stereo_wta.cu",
+         "replaces": "plvs_tpu/ops/stereo.py:161",
+         "launches": launches3["stereo_wta"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,16 +2,18 @@
 
 The port learns no weights; its state is the camera, the ORB pattern and
 angle weights and the LBD pairs (regenerated from the same seeds in
-``features/orb.py`` and ``features/lines.py``), and the map. The two
-functions here rebuild the camera and the map from plain numpy data, so a
-map built by plvs_tpu can be tracked against by plvs_tpu_torch (the tests
-track one frame against an identical map in both packages).
+``features/orb.py`` and ``features/lines.py``), the map, and the dense
+volume. The functions here rebuild the camera, the map and the TSDF volume
+from plain numpy data, so state built by plvs_tpu can be carried on by
+plvs_tpu_torch (the tests track one frame against an identical map, and
+integrate and mesh an identical volume, in both packages).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .dense.tsdf import TSDFVolume
 from .geometry import cameras
 from .slam.map_store import MapStore
 
@@ -42,3 +44,24 @@ def map_store_from_numpy(arrays: dict) -> MapStore:
             setattr(st, name, int(val))
     st.uid_slot = {int(u): int(k) for k, u in enumerate(st.kf_uid) if u >= 0}
     return st
+
+
+def tsdf_volume_from_numpy(cam: cameras.Camera, arrays: dict,
+                           device="cuda", **kw) -> TSDFVolume:
+    """A port TSDFVolume from the JAX TSDFVolume's state: ``block_coords``,
+    ``n_blocks``, ``block_map``, ``tsdf``, ``weight``, ``color`` (full
+    capacity, numpy), ``block_version`` and ``frame_idx``; ``kw`` are the
+    volume's settings (voxel_size, ...), its capacity that of the
+    arrays."""
+    vol = TSDFVolume(cam, max_blocks=arrays["block_coords"].shape[0],
+                     device=device, **kw)
+    vol.n_blocks = int(arrays["n_blocks"])
+    vol.block_map = {tuple(int(v) for v in k): int(i)
+                     for k, i in arrays["block_map"].items()}
+    vol.frame_idx = int(arrays["frame_idx"])
+    for name in ("block_coords", "block_version"):
+        cur = getattr(vol, name)
+        setattr(vol, name, np.array(arrays[name], dtype=cur.dtype, copy=True))
+    for name in ("tsdf", "weight", "color"):
+        vol._dev[name].copy_(vol._put(np.array(arrays[name], np.float32)))
+    return vol

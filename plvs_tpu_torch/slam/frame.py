@@ -1,8 +1,12 @@
 """Per-frame construction: feature extraction + depth association.
 
-Counterpart of the RGB-D parts of plvs_tpu/slam/frame.py (``Frame``,
-``FrameLines``, ``build_frame_rgbd``, ``build_frame_lines``,
-``project_points``). The depth image may arrive decimated (the quantized
+Counterpart of the RGB-D and rectified-stereo parts of
+plvs_tpu/slam/frame.py (``Frame``, ``FrameLines``, ``build_frame_rgbd``,
+``build_frame_lines``, ``build_frame_stereo``, ``build_frame_lines_stereo``,
+``project_points``); the non-rectified rig (``build_frame_stereo_rig``) and
+the monocular frame wait for ROADMAP.md queue 1 items 6 and 7. Stereo
+images are float32 as given (not quantized), as in JAX. The depth image of
+an RGB-D frame may arrive decimated (the quantized
 upload of ``System.track_rgbd`` keeps it at 1/dec resolution); consumers
 nearest-sample it by scaling the gather indices, as the JAX package does.
 """
@@ -11,10 +15,11 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..features import lines as lines_mod
-from ..features import orb
+from ..features import matching, orb
 from ..geometry import cameras as cam_mod
 from ..geometry import lie
 
@@ -74,6 +79,146 @@ def build_frame_lines(gray: torch.Tensor, depth_img: torch.Tensor,
     Xs = cam_mod.backproject(cam, kl.sp, torch.where(ds > 0, ds, 0.0))
     Xe = cam_mod.backproject(cam, kl.ep, torch.where(de > 0, de, 0.0))
     return FrameLines(kl, nld, ds, de, Xs, Xe)
+
+
+def _median_nan(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.median`` of a 1-D tensor: NaN if any entry is NaN, else the
+    midpoint of the two middle values."""
+    s = torch.sort(x).values
+    n = x.shape[0]
+    med = (s[(n - 1) // 2] + s[n // 2]) * 0.5
+    return torch.where(torch.isnan(x).any(), torch.full_like(med, torch.nan),
+                       med)
+
+
+def build_frame_stereo(gray_l: torch.Tensor, gray_r: torch.Tensor,
+                       cam: cam_mod.Camera, num_features: int = 1024,
+                       n_levels: int = 8, scale: float = 1.2,
+                       max_disp: float = 128.0, row_tol: float = 2.0) -> Frame:
+    """Rectified stereo pair -> Frame with per-keypoint uR / depth: both
+    images run the same ORB extraction, right matches come from a row- and
+    disparity-gated Hamming matrix with a ratio test, and the disparity is
+    refined by a parabola through bilinear SAD costs of a 1x11 strip at
+    nine offsets in [-1, 1] px around the matched right keypoint."""
+    kp_l = orb.extract(gray_l, num_features, n_levels, scale)
+    kp_r = orb.extract(gray_r, num_features, n_levels, scale)
+    f32 = torch.float32
+    dev = gray_l.device
+    h, w = gray_l.shape
+
+    dv = (kp_l.xy[:, None, 1] - kp_r.xy[None, :, 1]).abs()
+    tol = row_tol * torch.pow(scale, kp_l.octave.to(f32))[:, None]
+    disp = kp_l.xy[:, None, 0] - kp_r.xy[None, :, 0]
+    oct_ok = (kp_l.octave[:, None] - kp_r.octave[None, :]).abs() <= 1
+    cand = ((dv <= tol) & (disp > 0.1) & (disp < max_disp) & oct_ok
+            & kp_l.mask[:, None] & kp_r.mask[None, :])
+    dist = matching.hamming(kp_l.desc, kp_r.desc)
+    best, second, idx = matching._masked_best2(dist, cand)
+    # strict descriptor gate + ratio test: a wrong stereo match poisons depth
+    ok = (best <= matching.TH_LOW) & (best.to(f32) <= 0.8 * second.to(f32))
+
+    uR0 = kp_r.xy[idx, 0]
+    W = 5
+    vi = torch.clamp(lines_mod.round_to_index(kp_l.xy[:, 1]), 0, h - 1)
+    offs = torch.arange(-W, W + 1, device=dev)
+    ul = torch.clamp(lines_mod.round_to_index(kp_l.xy[:, 0])[:, None]
+                     + offs[None, :], 0, w - 1)
+    pl = gray_l[vi[:, None], ul]  # [N, 11]
+
+    def sad_at(du):
+        u = (uR0 + du)[:, None] + offs[None, :].to(f32)
+        u = torch.clamp(u, 0.0, w - 1.001)
+        u0 = torch.floor(u).to(torch.int64)
+        fu = u - u0
+        pr = (gray_r[vi[:, None], u0] * (1 - fu)
+              + gray_r[vi[:, None], u0 + 1] * fu)
+        return (pl - pr).abs().sum(-1)
+
+    deltas = torch.linspace(-1.0, 1.0, 9, device=dev)
+    sads = torch.stack([sad_at(d) for d in deltas])  # [9, N]
+    bidx_c = torch.clamp(torch.argmin(sads, dim=0), 1, 7)
+    c0 = sads.gather(0, (bidx_c - 1)[None])[0]
+    c1 = sads.gather(0, bidx_c[None])[0]
+    c2 = sads.gather(0, (bidx_c + 1)[None])[0]
+    denom = c0 - 2 * c1 + c2
+    step = deltas[1] - deltas[0]
+    sub = torch.where(denom.abs() > 1e-6, 0.5 * (c0 - c2) / denom,
+                      torch.zeros_like(denom))
+    uR = uR0 + deltas[bidx_c] + torch.clamp(sub, -1.0, 1.0) * step
+    disparity = kp_l.xy[:, 0] - uR
+    ok = ok & (disparity > 0.1) & (disparity < max_disp)
+    # photometric outlier gate; like jnp.median, any non-ok keypoint makes
+    # the median NaN, which turns the gate off
+    sad_best = torch.minimum(torch.minimum(c0, c1), c2)
+    med = _median_nan(torch.where(ok, sad_best,
+                                  torch.full_like(sad_best, torch.nan)))
+    med = torch.where(torch.isnan(med), torch.full_like(med, 1e9), med)
+    ok = ok & (sad_best <= 2.1 * med + 1e-3)
+
+    bf = torch.full_like(disparity, cam.bf)
+    d = torch.where(ok, bf / torch.clamp(disparity, min=0.1),
+                    torch.zeros_like(disparity))
+    uR_out = torch.where(ok, uR, torch.full_like(uR, -1.0))
+    uvr = torch.cat([kp_l.xy, uR_out[:, None]], -1)
+    xyz = cam_mod.backproject(cam, kp_l.xy, d)
+    return Frame(kp_l, uvr, d, orb.inv_scale_sigma2(kp_l.octave, scale), xyz)
+
+
+def build_frame_lines_stereo(gray_l: torch.Tensor, gray_r: torch.Tensor,
+                             cam: cam_mod.Camera, max_lines: int = 128,
+                             max_disp: float = 128.0, theta_tol: float = 0.08,
+                             max_hamming: int = 80) -> FrameLines:
+    """Line extraction with endpoint depths from left-right line matching on
+    a rectified pair: a left keyline matched to its right counterpart gets,
+    at each endpoint (u, v), the disparity u - u_r(v) from the right line's
+    equation at the same row. Near-horizontal lines (|nx| <= 0.15) are
+    degenerate and get no depth."""
+    kl_l = lines_mod.extract_lines(gray_l, max_lines=max_lines)
+    kl_r = lines_mod.extract_lines(gray_r, max_lines=max_lines)
+    nld_l = lines_mod.line_nld(kl_l.sp, kl_l.ep)
+    nld_r = lines_mod.line_nld(kl_r.sp, kl_r.ep)
+
+    th_l, _ = lines_mod.line_theta_d(kl_l.sp, kl_l.ep)
+    th_r, _ = lines_mod.line_theta_d(kl_r.sp, kl_r.ep)
+    dth = (th_l[:, None] - th_r[None, :]).abs()
+    dth = torch.minimum(dth, np.pi - dth)
+    # vertical-extent overlap (rows are epipolar lines)
+    v_lo_l = torch.minimum(kl_l.sp[:, 1], kl_l.ep[:, 1])
+    v_hi_l = torch.maximum(kl_l.sp[:, 1], kl_l.ep[:, 1])
+    v_lo_r = torch.minimum(kl_r.sp[:, 1], kl_r.ep[:, 1])
+    v_hi_r = torch.maximum(kl_r.sp[:, 1], kl_r.ep[:, 1])
+    v_overlap = (torch.minimum(v_hi_l[:, None], v_hi_r[None, :])
+                 - torch.maximum(v_lo_l[:, None], v_lo_r[None, :]))
+    cand = ((dth < theta_tol) & (v_overlap > 5.0)
+            & kl_l.mask[:, None] & kl_r.mask[None, :])
+    dist = matching.hamming(kl_l.desc, kl_r.desc)
+    best, second, idx = matching._masked_best2(dist, cand)
+    ok = (best <= max_hamming) & (
+        best.to(torch.float32) <= 0.9 * second.to(torch.float32))
+
+    nr = nld_r[idx]                     # matched right line
+    nx, ny, dd = nr[:, 0], nr[:, 1], nr[:, 2]
+    nx_ok = nx.abs() > 0.15
+    nx_safe = torch.where(nx_ok, nx, torch.ones_like(nx))
+
+    def endpoint_depth(xy):
+        u_r = -(ny * xy[:, 1] + dd) / nx_safe
+        disp = xy[:, 0] - u_r
+        good = ok & nx_ok & (disp > 0.3) & (disp < max_disp) & kl_l.mask
+        bf = torch.full_like(disp, cam.bf)
+        return torch.where(good, bf / torch.clamp(disp, min=0.3),
+                           torch.zeros_like(disp))
+
+    ds = endpoint_depth(kl_l.sp)
+    de = endpoint_depth(kl_l.ep)
+    # endpoint-depth consistency
+    consistent = (ds > 0) & (de > 0) & (
+        (ds - de).abs() < 0.5 * torch.maximum(ds, de))
+    ds = torch.where(consistent, ds, torch.zeros_like(ds))
+    de = torch.where(consistent, de, torch.zeros_like(de))
+    Xs = cam_mod.backproject(cam, kl_l.sp, ds)
+    Xe = cam_mod.backproject(cam, kl_l.ep, de)
+    return FrameLines(kl_l, nld_l, ds, de, Xs, Xe)
 
 
 def project_points(cam: cam_mod.Camera, R, t, xyz, margin: float = 8.0):

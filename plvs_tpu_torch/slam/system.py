@@ -1,11 +1,16 @@
-"""System facade for synchronous RGB-D tracking with points and lines.
+"""System facade for synchronous RGB-D and rectified-stereo tracking with
+points and lines, and dense TSDF mapping.
 
-Counterpart of plvs_tpu/slam/system.py for the first slice of the port:
+Counterpart of plvs_tpu/slam/system.py for the ported slices:
 ``SystemConfig`` keeps every field and default of the JAX package, and the
 settings whose machinery is not ported yet raise ``NotImplementedError``
 naming the ROADMAP.md item that ports them — none of them gets a stand-in.
 With the keyframe backend off, new map points and line landmarks still come
 from depth at every keyframe, so the tracker works against a growing map.
+With ``dense_mapping`` on, each keyframe's dense stage (depth — from stereo
+through kernel K3 on the stereo path —, filter, TSDF integration and the
+incremental mesh) runs inline, as the JAX package's synchronous backend
+runs it.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..dense.mapping import DenseMapper
 from ..geometry import cameras as cam_mod
 from ..geometry import lie
 from ..ops import resolve_device
@@ -91,31 +97,36 @@ _NOT_IN_SLICE = {
                             "closing"),
     "vocabulary_path": (None, "queue 1 item 3, place recognition and loop "
                               "closing"),
-    "dense_mapping": (False, "queue 1 item 2, dense mapping"),
+    "dense_segmentation": (False, "queue 1 item 7, segmentation"),
     "pipelined": (False, "queue 1 item 4, pipelined runtime"),
     "async_mapping": (False, "queue 1 item 4, pipelined runtime"),
     "use_imu": (False, "queue 1 item 5, inertial"),
-    "rectify": (False, "queue 1 item 6, stereo"),
+    "rectify": (False, "queue 1 item 6, stereo rectification"),
     "sharded_backend": (False, "queue 1 item 8, multi-device"),
     "image_scale": (1.0, "queue 1 item 7, mono and the rest"),
 }
 
 
 class System:
-    """RGB-D SLAM front end on one device (synchronous, backend off)."""
+    """RGB-D / rectified-stereo SLAM front end on one device (synchronous,
+    keyframe backend off, optional dense mapping)."""
 
     def __init__(self, cam: cam_mod.Camera, config: SystemConfig | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", cam2=None, T_c1_c2=None):
         self.config = c = config or SystemConfig()
         for name, (ok_value, item) in _NOT_IN_SLICE.items():
             if getattr(c, name) != ok_value:
                 raise NotImplementedError(
                     f"SystemConfig.{name}={getattr(c, name)!r} is not in the "
                     f"ported slice; ROADMAP.md {item} ports it")
-        if c.sensor != "rgbd":
+        if c.sensor not in ("rgbd", "stereo"):
             raise NotImplementedError(
-                f"SystemConfig.sensor={c.sensor!r}: only RGB-D is ported; "
-                "ROADMAP.md queue 1 items 6 (stereo) and 7 (mono)")
+                f"SystemConfig.sensor={c.sensor!r}: RGB-D and rectified "
+                "stereo are ported; mono is ROADMAP.md queue 1 item 7")
+        if cam2 is not None or T_c1_c2 is not None:
+            raise NotImplementedError(
+                "cam2 / T_c1_c2: the non-rectified stereo rig is ROADMAP.md "
+                "queue 1 item 6 (stereo rig)")
         self.device = resolve_device(device)
         self.cam = cam
         self.store = MapStore(max_kf=c.max_kf, max_pts=c.max_pts,
@@ -135,6 +146,11 @@ class System:
         tr.max_keylines = c.max_lines
         tr.depth_decimation = c.depth_upload_decimation
         tr.fixed_shapes = c.backend_fixed_shapes
+        self.dense_mapper = None
+        if c.dense_mapping:
+            self.dense_mapper = DenseMapper(
+                cam, voxel_size=c.dense_voxel_size,
+                mesh_every=c.dense_mesh_every, device=self.device)
         self.trajectory = []  # (timestamp, R, t) world-to-camera
         # (timestamp, ref_kf_uid, R_rel, t_rel): T_frame_w = T_rel * T_ref_w,
         # so the export follows any later change of the keyframe poses
@@ -170,10 +186,32 @@ class System:
         if res is None:
             fr, fl = self._build_frames(gray, depth)
             res = self.tracker.process_frame(fr, timestamp, fl)
-        return self._post_track(res, timestamp)
+        payload = ("rgbd", gray, depth) if self.dense_mapper else None
+        return self._post_track(res, timestamp, payload)
 
-    def _post_track(self, res, timestamp: float):
-        """Common tail of every Track* entry point."""
+    def track_stereo(self, gray_l: np.ndarray, gray_r: np.ndarray,
+                     timestamp: float, imu_samples=None):
+        """Track one rectified stereo pair (gray [H, W] each, float32 as
+        given — stereo images are not quantized); returns (state, Rcw,
+        tcw)."""
+        if imu_samples is not None:
+            raise NotImplementedError(
+                "imu_samples: the inertial path is ROADMAP.md queue 1 item 5")
+        c = self.config
+        gl = torch.from_numpy(np.asarray(gray_l, np.float32)).to(self.device)
+        gr = torch.from_numpy(np.asarray(gray_r, np.float32)).to(self.device)
+        fr = frame_mod.build_frame_stereo(gl, gr, self.cam, c.num_features,
+                                          c.n_levels, c.scale)
+        fl = (frame_mod.build_frame_lines_stereo(gl, gr, self.cam,
+                                                 c.max_lines)
+              if c.use_lines else None)
+        res = self.tracker.process_frame(fr, timestamp, fl)
+        payload = ("stereo", gl, gr) if self.dense_mapper else None
+        return self._post_track(res, timestamp, payload)
+
+    def _post_track(self, res, timestamp: float, dense_payload=None):
+        """Common tail of every Track* entry point; on a keyframe, the dense
+        stage runs inline."""
         st = self.store
         ref = self.tracker.ref_kf
         with st.lock:
@@ -187,6 +225,10 @@ class System:
                 self._traj_rel.append((timestamp, -1, res.R.copy(),
                                        res.t.copy()))
         if res.is_keyframe and res.kf_id >= 0:
+            if self.dense_mapper is not None and dense_payload is not None:
+                kind, a, b = dense_payload
+                self.dense_mapper.insert_keyframe(
+                    kind, a, b, st.kf_R[res.kf_id], st.kf_t[res.kf_id])
             # the backend would adjust the keyframe here; keep the tracker
             # pose consistent with the stored one, as the JAX package does
             self.tracker.R = st.kf_R[res.kf_id].copy()

@@ -1,6 +1,8 @@
 """Tracking front end: motion-model / local-map tracking + keyframe policy.
 
-Counterpart of plvs_tpu/slam/tracking.py for synchronous RGB-D tracking.
+Counterpart of plvs_tpu/slam/tracking.py for synchronous RGB-D and
+rectified-stereo tracking (a stereo frame carries per-keypoint depth like an
+RGB-D one and goes through ``process_frame``, as in JAX).
 The device program (guided matching + pose optimization) runs as torch ops
 on the tracker's device; the state machine and map bookkeeping stay on the
 host in numpy, as in the JAX package.
@@ -17,8 +19,8 @@ Differences from the JAX program, all deliberate:
   u16 millimetre depth, depth decimated on the fast path) instead of the
   JAX package's uint32 plane packing — the quantized values are identical.
 
-Relocalization, the monocular and stereo initializers, and the deferred
-(pipelined) resolution are not in this slice.
+Relocalization, the monocular initializer, and the deferred (pipelined)
+resolution are not in the ported slices.
 """
 
 from __future__ import annotations
@@ -353,7 +355,7 @@ class TrackResult:
 
 
 class Tracker:
-    """Host-side tracking state machine (synchronous RGB-D)."""
+    """Host-side tracking state machine (synchronous RGB-D / stereo)."""
 
     def __init__(self, cam: cam_mod.Camera, store: MapStore,
                  num_features: int = 1024, local_pts_cap: int = 4096,
@@ -364,10 +366,10 @@ class Tracker:
                  max_fov_centers_distance: float = 0.4,
                  min_init_pts: int = 300, line_track_weight: float = 2.0,
                  device: str | torch.device = "cuda"):
-        if sensor != "rgbd":
+        if sensor not in ("rgbd", "stereo"):
             raise NotImplementedError(
-                f"sensor={sensor!r}: only RGB-D tracking is ported; stereo "
-                "and mono are ROADMAP.md queue 1 items 6 and 7")
+                f"sensor={sensor!r}: RGB-D and rectified stereo tracking are "
+                "ported; mono is ROADMAP.md queue 1 item 7")
         self.device = resolve_device(device)
         self.cam = cam
         self.store = store

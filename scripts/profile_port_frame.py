@@ -1,18 +1,22 @@
-"""Where the time of the PyTorch port's per-frame RGB-D program goes.
+"""Where the time of the PyTorch port's per-frame program goes.
 
-    python3 scripts/profile_port_frame.py [--frames 40] [--window 5]
+    python3 scripts/profile_port_frame.py [--sensor rgbd|stereo] [--frames 40] [--window 5]
 
-Runs the configuration that ``chip_smoke.py`` drives (``System.track_rgbd``
-of ``plvs_tpu_torch`` at 640x480, 1024 ORB features, 8 levels, 160
-keylines, keyframe backend off) over bench.py's structured-wall scene on
-one CUDA card, and prints:
+Runs a configuration that ``chip_smoke.py`` drives over bench.py's
+structured-wall scene on one CUDA card — ``--sensor rgbd`` (phase 2):
+``System.track_rgbd`` of ``plvs_tpu_torch`` at 640x480, 1024 ORB features,
+8 levels, 160 keylines, keyframe backend off; ``--sensor stereo`` (phase
+3): ``System.track_stereo`` on rectified pairs at the same widths with
+dense TSDF mapping and per-keyframe incremental meshing — and prints:
 
 * the per-frame wall time (host clock, synchronised), p50 and p90;
 * the host time of each stage per frame, each stage synchronised at its
   ends: ORB frame build, line build, the tracking program (motion-model
-  search + local-map search + pose solves), the pose solves within it, and
-  the host bookkeeping that remains; plus pose solves and Gauss-Newton
-  iterations per frame;
+  search + local-map search + pose solves), the pose solves within it,
+  the dense stage (stereo: with its disparity and TSDF integration, the
+  rest being the mesh), and the host bookkeeping that remains; plus pose
+  solves and Gauss-Newton iterations per frame and dense-stage ms per
+  keyframe;
 * over a window of steady frames traced by ``torch.profiler``: device busy
   time per frame (sum of the durations of the device ops: kernels, copies
   and memsets), the device's idle share of the wall time, device ops per
@@ -53,6 +57,7 @@ def _stage_timer(torch, totals, counts, name, fn):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--sensor", choices=("rgbd", "stereo"), default="rgbd")
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--window", type=int, default=5,
                     help="steady frames traced by torch.profiler")
@@ -64,6 +69,8 @@ def main() -> int:
         return 2
     from torch.profiler import ProfilerActivity, profile
 
+    from plvs_tpu_torch.dense import mapping
+    from plvs_tpu_torch.dense.tsdf import TSDFVolume
     from plvs_tpu_torch.geometry import cameras, lie
     from plvs_tpu_torch.io import synthetic
     from plvs_tpu_torch.slam import System, SystemConfig, frame, tracking
@@ -76,23 +83,35 @@ def main() -> int:
 
     cam = cameras.pinhole(520.9, 521.0, 325.1, 249.7, width=640, height=480,
                           bf=40.0)
+    stereo = args.sensor == "stereo"
     cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
                        max_pts=65536, use_lines=True, max_lines=160,
-                       local_ba=False, loop_closing=False,
-                       dense_mapping=False, pipelined=False,
+                       sensor=args.sensor, local_ba=False, loop_closing=False,
+                       dense_mapping=stereo, dense_voxel_size=0.02,
+                       dense_mesh_every=1, pipelined=False,
                        depth_upload_decimation=2)
     tex = synthetic.make_structured_texture(
         2048, rng=np.random.default_rng(7))
     scene = synthetic.SyntheticRGBD(cam, wall_z=3.0, texture=tex,
                                     tex_scale=420.0)
-    frames = list(scene.sequence(n_frames=args.frames))
+    shift = np.array([cam.bf / float(cam.params[0]), 0.0, 0.0], np.float32)
+    # (timestamp, gray, depth or right image)
+    frames = [(ts, g, scene.render(R, t - shift)[0] if stereo else d)
+              for ts, g, d, R, t in scene.sequence(n_frames=args.frames)]
+
+    def track(system, ts, a, b):
+        if stereo:
+            system.track_stereo(a, b, ts)
+        else:
+            system.track_rgbd(a, b, ts)
+
     system = System(cam, cfg, device="cuda")
 
     # -- pass 1: per-frame wall time, no instrumentation ---------------------
     wall = []
-    for ts, g, d, _, _ in frames:
+    for ts, a, b in frames:
         t0 = time.perf_counter()
-        system.track_rgbd(g, d, ts)
+        track(system, ts, a, b)
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
     steady = np.asarray(wall[1:])
@@ -100,20 +119,25 @@ def main() -> int:
     # -- pass 2: per-stage host time, each stage synchronised ----------------
     totals: dict[str, float] = collections.defaultdict(float)
     counts: dict[str, int] = collections.defaultdict(int)
-    patches = [(frame, "build_frame_rgbd", "orb_frame"),
-               (frame, "build_frame_lines", "line_frame"),
+    sfx = "_stereo" if stereo else "_rgbd"
+    patches = [(frame, "build_frame" + sfx, "orb_frame"),
+               (frame, "build_frame_lines" + ("_stereo" if stereo else ""),
+                "line_frame"),
                (tracking, "_track_frame_tables", "tracking_program"),
                (pose_opt, "pose_optimize", "pose_solves"),
-               (lie, "se3_exp", "gn_iterations")]
+               (lie, "se3_exp", "gn_iterations"),
+               (mapping.DenseMapper, "insert_keyframe", "dense_stage"),
+               (mapping, "disparity", "dense_disparity"),
+               (TSDFVolume, "integrate", "dense_integrate")]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     for mod, attr, name in patches:
         setattr(mod, attr, _stage_timer(torch, totals, counts, name,
                                         getattr(mod, attr)))
     system2 = System(cam, cfg, device="cuda")
     t_all = 0.0
-    for ts, g, d, _, _ in frames:
+    for ts, a, b in frames:
         t0 = time.perf_counter()
-        system2.track_rgbd(g, d, ts)
+        track(system2, ts, a, b)
         torch.cuda.synchronize()
         t_all += time.perf_counter() - t0
     for mod, attr, fn in saved:
@@ -121,24 +145,31 @@ def main() -> int:
     n = len(frames)
     stage_ms = {k: totals[k] / n * 1e3 for k in
                 ("orb_frame", "line_frame", "tracking_program",
-                 "pose_solves")}
+                 "pose_solves", "dense_stage")}
     stage_ms["host_rest"] = (t_all / n * 1e3 - stage_ms["orb_frame"]
                              - stage_ms["line_frame"]
-                             - stage_ms["tracking_program"])
+                             - stage_ms["tracking_program"]
+                             - stage_ms["dense_stage"])
     per_frame = {"pose_solves": counts["pose_solves"] / n,
                  "gn_iterations": counts["gn_iterations"] / n}
+    n_kf = max(counts["dense_stage"], 1)
+    dense_ms_per_kf = {k: totals[k] / n_kf * 1e3 for k in
+                       ("dense_stage", "dense_disparity", "dense_integrate")}
+    dense_ms_per_kf["dense_mesh_and_rest"] = (
+        dense_ms_per_kf["dense_stage"] - dense_ms_per_kf["dense_disparity"]
+        - dense_ms_per_kf["dense_integrate"])
 
     # -- pass 3: torch.profiler over a steady window -------------------------
     window = frames[-args.window:]
     system3 = System(cam, cfg, device="cuda")
-    for ts, g, d, _, _ in frames[:-args.window]:
-        system3.track_rgbd(g, d, ts)
+    for ts, a, b in frames[:-args.window]:
+        track(system3, ts, a, b)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for ts, g, d, _, _ in window:
-            system3.track_rgbd(g, d, ts)
+        for ts, a, b in window:
+            track(system3, ts, a, b)
         torch.cuda.synchronize()
     win_s = time.perf_counter() - t0
     kern = [e for e in prof.events()
@@ -154,6 +185,9 @@ def main() -> int:
     print("host ms per frame by stage (each synchronised at its ends): "
           + json.dumps(stage_ms))
     print("per frame: " + json.dumps(per_frame))
+    if stereo:
+        print(f"dense stage ms per keyframe ({counts['dense_stage']} "
+              "keyframes): " + json.dumps(dense_ms_per_kf))
     print(f"profiled window of {nw} frames: wall {win_s * 1e3 / nw} ms/frame "
           f"(profiler on), {np.mean(wall[-nw:])} ms/frame (profiler off), "
           f"device busy {busy_us / 1e3 / nw} ms/frame, "
@@ -170,9 +204,12 @@ def main() -> int:
     idle_profiled = 1.0 - busy_us / 1e6 / win_s
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "card": smi.stdout.strip(),
-        "frames": n, "wall_ms_p50": float(np.percentile(steady, 50)),
+        "sensor": args.sensor, "frames": n,
+        "wall_ms_p50": float(np.percentile(steady, 50)),
         "wall_ms_p90": float(np.percentile(steady, 90)),
         "stage_ms": stage_ms, **per_frame,
+        **({"dense_ms_per_keyframe": dense_ms_per_kf,
+            "keyframes": counts["dense_stage"]} if stereo else {}),
         "device_busy_ms_per_frame": busy_us / 1e3 / nw,
         "device_idle_share": idle,
         "device_idle_share_profiled": idle_profiled,

@@ -5,7 +5,9 @@ jax or plvs_tpu, so they also run on a GPU machine that has no jax:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py -q
 
-Both kernels compute integer functions, so the comparison is exact.
+K1 and K2 compute integer functions, and K3's float steps are rounded once
+each in the same order in the kernel and its plain version, so every
+comparison is exact.
 """
 
 import numpy as np
@@ -15,7 +17,8 @@ import torch
 from plvs_tpu_torch.features import lines
 from plvs_tpu_torch.geometry import cameras
 from plvs_tpu_torch.io import synthetic
-from plvs_tpu_torch.ops import cc_labels, hamming
+from plvs_tpu_torch.dense import stereo_depth
+from plvs_tpu_torch.ops import cc_labels, hamming, stereo
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +85,28 @@ def test_cc_kernel_matches_plain_on_random_links(dev):
     tb = torch.from_numpy(bits).to(dev)
     assert torch.equal(cc_labels.cc_min_labels(ti, tb),
                        cc_labels.cc_min_labels_plain(ti, tb, None))
+
+
+@pytest.mark.parametrize("h,w,d,census", [(480, 640, 64, "shifted"),
+                                          (37, 150, 16, "random"),
+                                          (481, 641, 128, "shifted")])
+def test_stereo_wta_kernel_matches_plain(dev, h, w, d, census):
+    rng = np.random.default_rng(h + w + d)
+    if census == "random":
+        cl, cr = (torch.from_numpy(rng.integers(
+            0, 2 ** 32, (h, w), dtype=np.uint64).astype(np.uint32).view(
+                np.int32)).to(dev) for _ in range(2))
+    else:
+        base = rng.uniform(0, 255, (h, w + 16)).astype(np.float32)
+        left = torch.from_numpy(base[:, 8:w + 8]).to(dev)
+        right = torch.from_numpy(base[:, 15:w + 15]).to(dev)  # disparity 7
+        cl = stereo_depth.census_transform(left)
+        cr = stereo_depth.census_transform(right)
+    before = stereo.launches
+    got = stereo.disparity_wta(cl, cr, max_disp=d)
+    assert stereo.launches == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    ref = stereo.disparity_wta_plain(cl, cr, max_disp=d)
+    assert torch.equal(got, ref)
+    if census == "shifted":
+        assert (got > 0).float().mean() > 0.9

@@ -1,6 +1,6 @@
 """End-to-end parity: the same synthetic RGB-D sequence through the JAX
-System and the PyTorch port's System (CPU), with points and lines on and
-the keyframe backend off."""
+System and the PyTorch port's System (CPU), with points and lines and dense
+mapping on and the keyframe backend off."""
 
 import numpy as np
 import pytest
@@ -19,8 +19,8 @@ CAM_ARGS = (300.0, 300.0, 160.0, 120.0)
 CAM_KW = dict(width=320, height=240, bf=24.0)
 FLAGS = dict(num_features=512, n_levels=4, max_kf=64, max_pts=16384,
              use_lines=True, max_lines=64, local_ba=False,
-             loop_closing=False, dense_mapping=False, pipelined=False,
-             depth_upload_decimation=2)
+             loop_closing=False, dense_mapping=True, dense_voxel_size=0.04,
+             pipelined=False, depth_upload_decimation=2)
 
 
 def _frames():
@@ -33,7 +33,12 @@ def _frames():
 
 def _run(system, frames):
     states = [int(system.track_rgbd(g, d, ts)[0]) for ts, g, d, _, _ in frames]
-    return states, system.trajectory_tum(), system.map_statistics()
+    dm = system.dense_mapper
+    dense = dict(blocks=dm.volume.n_blocks, occupied=len(dm.cloud()[0]),
+                 cached_tris=sum(len(t) for t in
+                                 dm.mesher._block_tris.values()),
+                 remeshed=list(dm.remesh_counts))
+    return states, system.trajectory_tum(), system.map_statistics(), dense
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +73,7 @@ def test_renderer_matches_reference():
 
 
 def test_both_track_every_frame(runs):
-    (js, _, jmap), (ts_, _, tmap), _ = runs
+    (js, _, jmap, _), (ts_, _, tmap, _), _ = runs
     assert all(s == OK for s in js[1:]), js
     assert all(s == OK for s in ts_[1:]), ts_
     assert tmap["frames"] == jmap["frames"] == N_FRAMES
@@ -83,7 +88,7 @@ def test_per_frame_poses_agree(runs):
     borderline line association can flip on a frame. Measured on this
     sequence: 11 frames within 1.3e-5 m and one (frame 6, one extra line
     match) 1.8e-2 m apart, re-anchored by the next frame."""
-    (_, jt, _), (_, tt, _), _ = runs
+    (_, jt, _, _), (_, tt, _, _), _ = runs
     np.testing.assert_allclose(tt[:, 0], jt[:, 0])
     dpos = np.linalg.norm(tt[:, 1:4] - jt[:, 1:4], axis=1)
     # angle between the two orientations from the quaternion inner product
@@ -97,21 +102,38 @@ def test_per_frame_poses_agree(runs):
 def test_ate_agrees(runs):
     """Both ATEs against ground truth within 20% of each other (plus 0.5 mm
     of slack: both are a few millimetres)."""
-    (_, jt, _), (_, tt, _), gt = runs
+    (_, jt, _, _), (_, tt, _, _), gt = runs
     ate_j = evaluation.ate_rmse(jt[:, 1:4], gt, align=True)
     ate_t = evaluation.ate_rmse(tt[:, 1:4], gt, align=True)
     assert ate_t < 0.03, ate_t
     assert abs(ate_t - ate_j) <= 0.2 * max(ate_j, ate_t) + 5e-4, (ate_j, ate_t)
 
 
+def test_rgbd_dense_map_agrees(runs):
+    """The dense maps of both runs: the same keyframes, remeshed-block
+    counts and allocated blocks; occupied voxels and cached mesh triangles
+    within 1% (the dense input is the same quantized depth; the keyframe
+    poses agree to ~1e-5 m, test_per_frame_poses_agree)."""
+    (_, _, jmap, jd), (_, _, tmap, td), _ = runs
+    assert tmap["keyframes"] == jmap["keyframes"] >= 2
+    assert td["remeshed"] == jd["remeshed"]
+    assert td["blocks"] == jd["blocks"]
+    for key in ("occupied", "cached_tris"):
+        assert jd[key] > 1000 and abs(td[key] - jd[key]) <= 0.01 * jd[key], (
+            key, jd[key], td[key])
+
+
 def test_unsupported_settings_raise():
     cam = tcam.pinhole(*CAM_ARGS, **CAM_KW)
     for kw in (dict(local_ba=True), dict(loop_closing=True),
-               dict(dense_mapping=True), dict(pipelined=True),
-               dict(async_mapping=True), dict(use_imu=True),
-               dict(sensor="stereo")):
+               dict(rectify=True), dict(dense_segmentation=True),
+               dict(pipelined=True), dict(async_mapping=True),
+               dict(use_imu=True), dict(sensor="mono")):
         with pytest.raises(NotImplementedError):
             TSystem(cam, TConfig(**{**FLAGS, **kw}), device="cpu")
+    with pytest.raises(NotImplementedError):   # the non-rectified rig
+        TSystem(cam, TConfig(**{**FLAGS, "sensor": "stereo"}), device="cpu",
+                cam2=cam, T_c1_c2=np.eye(4, dtype=np.float32))
 
 
 def test_cuda_requested_without_cuda_raises():
