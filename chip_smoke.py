@@ -8,16 +8,22 @@ started together). Phase 1 holds each kernel against its plain PyTorch
 version on the card (exact equality: K1 and K2 are integer functions, and
 K3 rounds its few float steps once each in the same order as its plain
 version) at the shapes the main paths give it plus ragged and adversarial
-inputs, and times both with CUDA events. Phase 2 drives slice 1's path —
+inputs (K2's grids also at KITTI's 188x620 and 1280x720's 360x640, K3 also
+at r = 1 and at 376x1241). It times each kernel with one CUDA-event pair
+around 100 back-to-back calls queued behind a spin kernel (device time
+only), the plain versions per call; checks with torch.profiler that one
+call of K2 and one of K3 each run exactly one device kernel; and measures
+the device memory one K3 call adds. Phase 2 drives slice 1's path —
 ``System.track_rgbd``, synchronous RGB-D tracking with points and lines at
 640x480, 1024 ORB features, 8 levels, 160 keylines, keyframe backend off —
 over bench.py's structured-wall scene, with every launch counter set to 0
-just before and read just after, and checks that every frame is tracked
-and the trajectory's ATE is within the bound below. Phase 3 drives slice
-2's path the same way — ``System.track_stereo`` on rectified pairs of the
-same scene (the right image one baseline to the right) with dense TSDF
-mapping and per-keyframe incremental meshing — and checks tracking, ATE,
-one K3 launch per keyframe, and the dense map against the JAX package's.
+just before and read just after, checks that every frame is tracked and
+the trajectory's ATE is within the bound below, and prints K1's launches
+by shape. Phase 3 drives slice 2's path the same way —
+``System.track_stereo`` on rectified pairs of the same scene (the right
+image one baseline to the right) with dense TSDF mapping and per-keyframe
+incremental meshing — and checks tracking, ATE, one K3 launch per
+keyframe, and the dense map against the JAX package's.
 
 It prints one ``{"kernels": [...]}`` line and ends with one
 ``{"ok": true, "device": {...}}`` line. Any failed phase exits non-zero; so
@@ -62,6 +68,9 @@ WALL_Z = 3.0
 N_FRAMES = 120
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 CUDA_CORE_OPS_PER_S = 67e12   # H100 SXM non-tensor peak (float32 figure)
+# ~0.1 s of spin at the H100's clocks: longer than the host takes to
+# enqueue _time_ms's calls, so they queue up behind it
+SPIN_CYCLES = 200_000_000
 
 
 def _fail(msg: str) -> None:
@@ -69,8 +78,29 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-def _time_ms(torch, fn, reps: int = 50, warmup: int = 5) -> float:
-    """Median device time of one call (CUDA events around each call)."""
+def _time_ms(torch, fn, reps: int = 100, warmup: int = 5) -> float:
+    """Device time of one kernel call: one event pair around ``reps``
+    back-to-back calls, divided by ``reps``. The stream is first held by a
+    spin kernel (``torch.cuda._sleep``) while the host enqueues every call,
+    so the window holds device time only, not the wrappers' host work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _time_ms_per_call(torch, fn, reps: int = 50, warmup: int = 5) -> float:
+    """Median of one event pair around each call (host work included):
+    the plain versions' form, where tens of launches per call make the
+    host share small."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -84,6 +114,28 @@ def _time_ms(torch, fn, reps: int = 50, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _short(kernel_name: str) -> str:
+    name = kernel_name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0][:60]
+
+
+def _print_device_ops(torch, label: str, fn) -> list:
+    """Trace one warm call of ``fn`` with torch.profiler and print the
+    device operations it ran (name and device us); returns them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"phase 1: {label}: one call ran {len(ops)} device op(s): "
+          + "; ".join(f"{_short(n)} {us:.3f} us" for n, us in ops))
+    return ops
 
 
 def _bound_ms(n_bytes: float, n_ops: float):
@@ -117,66 +169,6 @@ def _scene(cam, synthetic):
         2048, rng=np.random.default_rng(7))
     return synthetic.SyntheticRGBD(cam, wall_z=3.0, texture=tex,
                                    tex_scale=420.0)
-
-
-def _sym_links(mask: np.ndarray, keep: np.ndarray | None = None) -> np.ndarray:
-    """Undirected 8-neighbour link bits between valid cells of ``mask``
-    (no wrap at the borders); ``keep[ci]`` [H, W] optionally drops links
-    (applied symmetrically)."""
-    from plvs_tpu_torch.ops.cc_labels import SHIFTS
-
-    h, w = mask.shape
-    bits = np.zeros((h, w), np.int32)
-    ys, xs = np.mgrid[0:h, 0:w]
-    for ci, (sy, sx) in enumerate(SHIFTS):
-        ny, nx = ys - sy, xs - sx
-        inside = (ny >= 0) & (ny < h) & (nx >= 0) & (nx < w)
-        nyc, nxc = np.clip(ny, 0, h - 1), np.clip(nx, 0, w - 1)
-        link = inside & mask & mask[nyc, nxc]
-        if keep is not None:
-            # the opposite direction of (sy, sx) is ci ^ 1 in SHIFTS; a link
-            # survives when the lower-index end keeps it
-            lo = np.minimum(ys * w + xs, nyc * w + nxc)
-            link &= keep[ci // 2].reshape(-1)[lo]
-        bits |= link.astype(np.int32) << ci
-    return bits
-
-
-def _spiral(h: int, w: int) -> np.ndarray:
-    """One corridor spiralling inward with a one-cell gap between turns."""
-    m = np.zeros((h, w), bool)
-    y, x, dy, dx = 0, 0, 0, 1
-    m[0, 0] = True
-    stuck = 0
-    while stuck < 2:
-        ny, nx, fy, fx = y + dy, x + dx, y + 2 * dy, x + 2 * dx
-        ahead_free = (0 <= ny < h and 0 <= nx < w and not m[ny, nx]
-                      and not (0 <= fy < h and 0 <= fx < w and m[fy, fx]))
-        if ahead_free:
-            y, x, stuck = ny, nx, 0
-            m[y, x] = True
-        else:
-            dy, dx, stuck = dx, -dy, stuck + 1
-    return m
-
-
-def _adversarial_grids(h: int, w: int, rng):
-    """(name, mask, conn_bits): grids that defeat a bounded sweep count."""
-    grids = []
-    full = np.ones((h, w), bool)
-    grids.append(("full_grid", full, _sym_links(full)))
-    empty = np.zeros((h, w), bool)
-    grids.append(("empty", empty, np.zeros((h, w), np.int32)))
-    stair = np.zeros((h, w), bool)   # one diagonal staircase, corner links
-    for i in range(min(h, w)):
-        stair[i, i] = True
-    grids.append(("diagonal_staircase", stair, _sym_links(stair)))
-    spiral = _spiral(h, w)
-    grids.append(("spiral", spiral, _sym_links(spiral)))
-    rmask = rng.random((h, w)) < 0.55
-    keep = rng.random((4, h, w)) < 0.6
-    grids.append(("random_links", rmask, _sym_links(rmask, keep)))
-    return grids
 
 
 def _phase3(torch, cam, scene) -> dict:
@@ -328,10 +320,13 @@ def main() -> int:
         print(f"phase 1: K1 hamming {name}: max_abs_err {err}")
         if err:
             _fail(f"K1 disagrees with its plain version on {name}")
+    for name, a, b in k1_cases[:4]:
+        print(f"phase 1: K1 at {name} (a main-path shape): kernel "
+              f"{_time_ms(torch, lambda: hamming.hamming_matrix(a, b)):.6f} ms")
     a, b = k1_cases[0][1], k1_cases[0][2]
     q, k = a.shape[0], b.shape[0]
     k1_ms = _time_ms(torch, lambda: hamming.hamming_matrix(a, b))
-    k1_plain_ms = _time_ms(torch, lambda: hamming.hamming_plain(a, b))
+    k1_plain_ms = _time_ms_per_call(torch, lambda: hamming.hamming_plain(a, b))
     shifts = torch.arange(32, device=dev)
     bq = ((a.to(torch.int64)[:, :, None] >> shifts) & 1).reshape(q, 256).float()
     bk = ((b.to(torch.int64)[:, :, None] >> shifts) & 1).reshape(k, 256).float()
@@ -351,28 +346,41 @@ def main() -> int:
     _, _, init_r, conn_r = lines_mod.connectivity_grid(gray)
     h2, w2 = init_r.shape
     ref_cap = -(-((h2 + w2) // 3) // 8)
-    k2_cases = [("frame_640x480", init_r, conn_r)]
-    sentinel = h2 * w2
-    for name, mask, bits in _adversarial_grids(h2, w2, rng):
-        init = np.where(mask, np.arange(h2 * w2).reshape(h2, w2), sentinel)
-        k2_cases.append((name, torch.from_numpy(init.astype(np.int32)).to(dev),
-                         torch.from_numpy(bits).to(dev)))
+    print(f"phase 1: K2's 8-block cluster at {cc_labels.SMEM_PER_BLOCK} B of "
+          f"shared memory a block: {cc_labels.max_active_clusters()} can be "
+          "resident at once")
+    # the rendered frame's grid, then grids that defeat a bounded sweep count
+    # at the main-path shape, KITTI's (188x620) and 1280x720's (360x640)
+    k2_cases = [("frame_240x320", init_r, conn_r)]
+    for gh, gw in ((h2, w2), (188, 620), (360, 640)):
+        for name, init, bits in synthetic.cc_grids(gh, gw, rng):
+            k2_cases.append((f"{name}_{gh}x{gw}",
+                             torch.from_numpy(init).to(dev),
+                             torch.from_numpy(bits).to(dev)))
     k2_err = 0
     for name, init, conn in k2_cases:
         got = cc_labels.cc_min_labels(init, conn)
         ref = cc_labels.cc_min_labels_plain(init, conn, max_chunks=None)
-        capped = cc_labels.cc_min_labels_plain(init, conn, max_chunks=ref_cap)
+        cap = -(-((init.shape[0] + init.shape[1]) // 3) // 8)
+        capped = cc_labels.cc_min_labels_plain(init, conn, max_chunks=cap)
         torch.cuda.synchronize()
         err = int((got.to(torch.int64) - ref).abs().max())
         k2_err = max(k2_err, err)
         print(f"phase 1: K2 cc_min_labels {name}: max_abs_err {err} vs the "
               f"converged plain version; plain with the reference cap of "
-              f"{ref_cap} chunks {'agrees' if torch.equal(got, capped) else 'stops short'}")
+              f"{cap} chunks {'agrees' if torch.equal(got, capped) else 'stops short'}")
         if err:
             _fail(f"K2 disagrees with its plain version on {name}")
     k2_ms = _time_ms(torch, lambda: cc_labels.cc_min_labels(init_r, conn_r))
-    k2_plain_ms = _time_ms(torch, lambda: cc_labels.cc_min_labels_plain(
-        init_r, conn_r, ref_cap))
+    k2_plain_ms = _time_ms_per_call(
+        torch, lambda: cc_labels.cc_min_labels_plain(init_r, conn_r, ref_cap))
+    for name, init, conn in k2_cases[1:]:
+        if name.startswith(("spiral", "full_grid")):
+            ms = _time_ms(torch, lambda: cc_labels.cc_min_labels(init, conn))
+            print(f"phase 1: K2 at {name}: kernel {ms:.6f} ms")
+    if len(_print_device_ops(torch, "K2", lambda: cc_labels.cc_min_labels(
+            init_r, conn_r))) != 1:
+        _fail("one call of K2 did not run exactly one device kernel")
     n_links = int(sum(((conn_r >> ci) & 1).sum() for ci in range(8)))
     k2_bound, k2_by = _bound_ms(12 * h2 * w2, 8 * h2 * w2 + 4 * n_links)
     print(f"phase 1: K2 at {h2}x{w2}: kernel {k2_ms:.4f} ms, plain "
@@ -392,19 +400,22 @@ def main() -> int:
             np.uint32).view(np.int32)).to(dev)
 
     flat = stereo_depth.census_transform(torch.zeros((480, 640), device=dev))
-    k3_cases = [("rendered_480x640_d64", cl0, cr0, 64),
+    k3_cases = [("rendered_480x640_d64", cl0, cr0, 64, 3),
                 ("random_480x640_d64", census_words(480, 640),
-                 census_words(480, 640), 64),
-                ("textureless_480x640_d64", flat, flat, 64),
+                 census_words(480, 640), 64, 3),
+                ("textureless_480x640_d64", flat, flat, 64, 3),
                 ("ragged_37x150_d16", census_words(37, 150),
-                 census_words(37, 150), 16),
+                 census_words(37, 150), 16, 3),
                 ("random_481x641_d64", census_words(481, 641),
-                 census_words(481, 641), 64),
-                ("rendered_480x640_d128", cl0, cr0, 128)]
+                 census_words(481, 641), 64, 3),
+                ("rendered_480x640_d128", cl0, cr0, 128, 3),
+                ("rendered_480x640_d64_r1", cl0, cr0, 64, 1),
+                ("random_376x1241_d64", census_words(376, 1241),
+                 census_words(376, 1241), 64, 3)]
     k3_err = 0.0
-    for name, cl, cr, d in k3_cases:
-        got = stereo.disparity_wta(cl, cr, max_disp=d)
-        ref = stereo.disparity_wta_plain(cl, cr, max_disp=d)
+    for name, cl, cr, d, r in k3_cases:
+        got = stereo.disparity_wta(cl, cr, max_disp=d, agg_radius=r)
+        ref = stereo.disparity_wta_plain(cl, cr, max_disp=d, agg_radius=r)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         same_invalid = torch.equal(got < 0, ref < 0)
@@ -417,8 +428,21 @@ def main() -> int:
         if name.startswith("textureless") and bool((got >= 0).any()):
             _fail("K3 kept pixels of a textureless pair")
     k3_ms = _time_ms(torch, lambda: stereo.disparity_wta(cl0, cr0))
-    k3_plain_ms = _time_ms(torch, lambda: stereo.disparity_wta_plain(cl0, cr0),
-                           reps=10)
+    k3_plain_ms = _time_ms_per_call(
+        torch, lambda: stereo.disparity_wta_plain(cl0, cr0), reps=10)
+    if len(_print_device_ops(torch, "K3",
+                             lambda: stereo.disparity_wta(cl0, cr0))) != 1:
+        _fail("one call of K3 did not run exactly one device kernel")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    stereo.disparity_wta(cl0, cr0)
+    torch.cuda.synchronize()
+    k3_added = torch.cuda.max_memory_allocated() - before
+    print(f"phase 1: K3 at 480x640x64 adds {k3_added} B of device memory per "
+          "call (the disparity it returns included)")
+    if k3_added >= 4 * 2 ** 20:
+        _fail(f"K3 allocates {k3_added} B per call")
     h3, w3 = cl0.shape
     # bytes: census in + disparity out; operations: XOR+popcount, the
     # separable (2r+1) + (2r+1) box additions and ~3 compares per (y, x, d)
@@ -437,6 +461,7 @@ def main() -> int:
     system = System(cam, cfg, device="cuda")
     frames = list(scene.sequence(n_frames=N_FRAMES))
     hamming.launches = cc_labels.launches = stereo.launches = 0
+    hamming.shapes.clear()
     states, ms = [], []
     for ts, g, d, _, _ in frames:
         t1 = time.perf_counter()
@@ -454,6 +479,8 @@ def main() -> int:
           f"{np.percentile(steady, 50):.2f} p90 {np.percentile(steady, 90):.2f} "
           f"(first frame {ms[0]:.1f}); map {system.map_statistics()}; ATE-RMSE "
           f"{ate:.6f} m (bound {ATE_BOUND_M:.6f} m); launches {launches}")
+    print("phase 2: K1 launches by Q x K: " + ", ".join(
+        f"{q}x{k} {n}" for (q, k), n in sorted(hamming.shapes.items())))
     if not all(s == OK for s in states[1:]):
         _fail(f"tracking states {states}")
     if launches["hamming"] < 2 * (N_FRAMES - 1):

@@ -131,3 +131,78 @@ class SyntheticRGBD:
         for i, (R, t) in enumerate(poses):
             gray, depth = self.render(R, t)
             yield i / fps, gray, depth, R, t
+
+
+# -- connected-component grids (kernel K2's test inputs) ---------------------
+
+def link_bits(mask: np.ndarray, keep: np.ndarray | None = None,
+              wrap: bool = False) -> np.ndarray:
+    """Undirected 8-neighbour link bits (``ops.cc_labels.SHIFTS`` order)
+    between the cells of ``mask``; ``wrap`` links across the borders
+    cyclically. ``keep[ci // 2]`` [H, W] optionally drops links, the same
+    for both directions (a link survives when its lower-index end keeps it)."""
+    from ..ops.cc_labels import SHIFTS
+
+    h, w = mask.shape
+    bits = np.zeros((h, w), np.int32)
+    ys, xs = np.mgrid[0:h, 0:w]
+    for ci, (sy, sx) in enumerate(SHIFTS):
+        ny, nx = ys - sy, xs - sx
+        if wrap:
+            inside = np.ones((h, w), bool)
+            ny, nx = ny % h, nx % w
+        else:
+            inside = (ny >= 0) & (ny < h) & (nx >= 0) & (nx < w)
+            ny, nx = np.clip(ny, 0, h - 1), np.clip(nx, 0, w - 1)
+        link = inside & mask & mask[ny, nx]
+        if keep is not None:
+            lo = np.minimum(ys * w + xs, ny * w + nx)
+            link &= keep[ci // 2].reshape(-1)[lo]
+        bits |= link.astype(np.int32) << ci
+    return bits
+
+
+def spiral(h: int, w: int) -> np.ndarray:
+    """One corridor spiralling inward with a one-cell gap between turns."""
+    m = np.zeros((h, w), bool)
+    y, x, dy, dx = 0, 0, 0, 1
+    m[0, 0] = True
+    stuck = 0
+    while stuck < 2:
+        ny, nx, fy, fx = y + dy, x + dx, y + 2 * dy, x + 2 * dx
+        ahead_free = (0 <= ny < h and 0 <= nx < w and not m[ny, nx]
+                      and not (0 <= fy < h and 0 <= fx < w and m[fy, fx]))
+        if ahead_free:
+            y, x, stuck = ny, nx, 0
+            m[y, x] = True
+        else:
+            dy, dx, stuck = dx, -dy, stuck + 1
+    return m
+
+
+def cc_grids(h: int, w: int, rng: np.random.Generator):
+    """(name, init, conn_bits) grids that defeat a bounded sweep count:
+    the full grid, an empty one, a diagonal staircase, a spiral, random
+    links, and random links that wrap across both borders. ``init`` holds
+    each valid cell's index and h * w elsewhere, both [H, W] int32."""
+    full = np.ones((h, w), bool)
+    stair = np.zeros((h, w), bool)
+    idx = np.arange(min(h, w))
+    stair[idx, idx] = True
+    rmask = rng.random((h, w)) < 0.55
+    keep = rng.random((4, h, w)) < 0.6
+    wmask = rng.random((h, w)) < 0.55
+    wkeep = rng.random((4, h, w)) < 0.6
+    coil = spiral(h, w)
+    grids = [("full_grid", full, link_bits(full)),
+             ("empty", ~full, np.zeros((h, w), np.int32)),
+             ("diagonal_staircase", stair, link_bits(stair)),
+             ("spiral", coil, link_bits(coil)),
+             ("random_links", rmask, link_bits(rmask, keep)),
+             ("random_wrapping_links", wmask,
+              link_bits(wmask, wkeep, wrap=True))]
+    out = []
+    for name, mask, bits in grids:
+        init = np.where(mask, np.arange(h * w).reshape(h, w), h * w)
+        out.append((name, init.astype(np.int32), bits))
+    return out

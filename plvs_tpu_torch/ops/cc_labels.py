@@ -6,8 +6,11 @@ label (invalid cells a large sentinel), bit ci of ``conn_bits`` [H, W]
 int32 links the cell to its ``SHIFTS[ci]`` neighbour; the result holds the
 minimum ``init`` over each cell's connected component.
 
-* CUDA tensors: the union-find kernel in ``csrc/cc_labels.cu`` — the true
-  fixpoint for any component shape, with no iteration count.
+* CUDA tensors: the union-find kernel in ``csrc/cc_labels.cu``, one
+  launch with the grid's state in the shared memory of one 8-block thread
+  cluster — the true fixpoint for any component shape, with no iteration
+  count and no device scratch. Grids over :data:`CLUSTER_CAPACITY` cells
+  are refused (:func:`check_capacity`).
 * CPU tensors: :func:`cc_min_labels_plain`, which mirrors the JAX CPU
   reference (plvs_tpu/features/lines.py, the ``while_loop`` branch of
   ``detect_lines``) bit for bit, including its iteration cap.
@@ -30,8 +33,31 @@ from . import _build
 SHIFTS = [(1, 0), (-1, 0), (0, 1), (0, -1),
           (1, 1), (-1, -1), (1, -1), (-1, 1)]
 
-# launches of the CUDA kernels (one per wrapper call that reaches the card)
+# launches of the CUDA kernel (one per wrapper call that reaches the card)
 launches = 0
+
+# the kernel's cluster: 8 blocks, each with at most 227 KB of shared memory
+# holding 8 B (parent + component minimum) for each of its cells
+CLUSTER_BLOCKS = 8
+SMEM_PER_BLOCK = 232_448
+BYTES_PER_CELL = 8
+CLUSTER_CAPACITY = CLUSTER_BLOCKS * (SMEM_PER_BLOCK // BYTES_PER_CELL)
+
+
+def smem_per_block(h: int, w: int) -> int:
+    """Shared-memory bytes each cluster block needs for an h x w grid
+    (cells split row-major into 8 equal runs)."""
+    return -(-(h * w) // CLUSTER_BLOCKS) * BYTES_PER_CELL
+
+
+def check_capacity(h: int, w: int) -> None:
+    """Raise ValueError when an h x w grid does not fit the cluster."""
+    if smem_per_block(h, w) > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"cc_min_labels: a {h}x{w} grid ({h * w} cells) exceeds the "
+            f"kernel's cluster capacity of {CLUSTER_CAPACITY} cells "
+            f"({CLUSTER_BLOCKS} blocks x {SMEM_PER_BLOCK} B of shared memory "
+            f"at {BYTES_PER_CELL} B a cell)")
 
 
 def _seg_min_scan(lab: torch.Tensor, link: torch.Tensor, dim: int,
@@ -116,17 +142,14 @@ def cc_min_labels(init: torch.Tensor, conn_bits: torch.Tensor,
     init = init.contiguous()
     conn_bits = conn_bits.contiguous()
     h, w = init.shape
+    check_capacity(h, w)
     out = torch.empty_like(init)
     if h * w == 0:
         return out
-    parent = torch.empty(h * w, dtype=torch.int32, device=init.device)
-    rootmin = torch.empty(h * w, dtype=torch.int32, device=init.device)
-    lib = _lib()
-    err = lib.plvs_cc_min_labels(
-        init.data_ptr(), conn_bits.data_ptr(), out.data_ptr(),
-        parent.data_ptr(), rootmin.data_ptr(), h, w,
+    err = _lib().plvs_cc_min_labels(
+        init.data_ptr(), conn_bits.data_ptr(), out.data_ptr(), h, w,
         torch.cuda.current_stream(init.device).cuda_stream)
-    _build.check(err, "cc_min_labels kernels")
+    _build.check(err, "cc_min_labels kernel")
     launches += 1
     return out
 
@@ -136,6 +159,18 @@ def _lib():
     fn = lib.plvs_cc_min_labels
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p]
+        occ = lib.plvs_cc_max_active_clusters
+        occ.restype = ctypes.c_int
+        occ.argtypes = [ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def max_active_clusters() -> int:
+    """Clusters of the kernel the card can hold at once with the full
+    227 KB per block (0: the cluster cannot be scheduled on this card)."""
+    n = ctypes.c_int(0)
+    _build.check(_lib().plvs_cc_max_active_clusters(ctypes.byref(n)),
+                 "cudaOccupancyMaxActiveClusters")
+    return n.value

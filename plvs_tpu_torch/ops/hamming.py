@@ -12,6 +12,7 @@ popcount(xor) — exact, so kernel and plain version agree bit for bit.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -21,8 +22,10 @@ from . import _build
 WORDS = 8
 BITS = 32 * WORDS
 
-# launches of the CUDA kernel (one per wrapper call that reaches the card)
+# launches of the CUDA kernel (one per wrapper call that reaches the card),
+# and the same launches by (Q, K) shape
 launches = 0
+shapes: collections.Counter = collections.Counter()
 
 _POP8 = torch.tensor([bin(i).count("1") for i in range(256)],
                      dtype=torch.int32)
@@ -72,6 +75,7 @@ def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
                            torch.cuda.current_stream(d1.device).cuda_stream)
     _build.check(err, "hamming kernel")
     launches += 1
+    shapes[(q, k)] += 1
     return out
 
 

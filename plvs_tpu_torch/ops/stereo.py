@@ -22,7 +22,12 @@ the TPU kernel's function, borders included (``ops/stereo.py:20-23`` and
 * a pixel is valid when ``best <= uniqueness * second``,
   ``|bestd - dR| <= lr_thresh`` and ``0 < bestd < D - 1``.
 
-* CUDA tensors: the kernels in ``csrc/stereo_wta.cu``.
+* CUDA tensors: the kernel in ``csrc/stereo_wta.cu``, one launch, one
+  block per band of full-width rows, the cost volume kept on chip; no
+  device scratch. :func:`band_config` gives its band geometry and refuses
+  what it does not take (``agg_radius`` over :data:`MAX_RADIUS`,
+  ``max_disp`` over :data:`MAX_DISP`, images wider than
+  ``2 * MAX_THREADS - 2 * agg_radius`` columns).
 * CPU tensors: :func:`disparity_wta_plain`.
 
 The two agree bit for bit: the cost sums are integers, and both round the
@@ -32,17 +37,70 @@ same float32 steps once each, in the same order.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, round_up
 from .hamming import _POP8
 
 INVALID_COST = 1000   # cost of a column with no right-image partner
 BIG = 1e9             # cost of a right-image candidate past the edge
 
-# launches of the CUDA kernels (one per wrapper call that reaches the card)
+# launches of the CUDA kernel (one per wrapper call that reaches the card)
 launches = 0
+
+# the kernel's limits: box radii it is instantiated for, disparities its
+# sweep keys hold (13 bits beside an 18-bit box sum), threads per block,
+# and an H100 block's dynamic shared memory (227 KB)
+MAX_RADIUS = 7
+MAX_DISP = 8192
+MAX_THREADS = 704
+SMEM_PER_BLOCK = 232_448
+
+
+class Band(NamedTuple):
+    """Geometry of the kernel's blocks for one image width."""
+    rows: int             # output rows per block (TH)
+    cols_per_thread: int  # columns each thread owns
+    threads: int          # threads per block
+    smem_bytes: int       # dynamic shared memory per block
+
+
+def band_config(w: int, agg_radius: int, max_disp: int = 64) -> Band:
+    """The kernel's band for images ``w`` columns wide (``csrc/stereo_wta.cu``).
+
+    Each block owns 4 full-width rows (2 where one thread per column of the
+    band and its 2r halo columns would exceed ``MAX_THREADS``, and each
+    thread then takes two columns). In stage 1 a thread forms one column's
+    raw costs and vertical box sums; in stage 2 it owns 4 adjacent output
+    pixels of one row. Shared memory holds the vertical sums of two
+    disparities, double-buffered (rows padded for 16-B loads), the
+    right-image winners
+    (box sum and d packed in one key) and the right census rows with their
+    r-row halo."""
+    r = agg_radius
+    if not 0 <= r <= MAX_RADIUS:
+        raise ValueError(f"agg_radius={r}: the CUDA kernel takes 0.."
+                         f"{MAX_RADIUS}")
+    if max_disp > MAX_DISP:
+        raise ValueError(f"max_disp={max_disp}: the CUDA kernel takes at "
+                         f"most {MAX_DISP}")
+    cols = w + 2 * r
+    cpt = 1 if cols <= MAX_THREADS else 2
+    if cols > cpt * MAX_THREADS:
+        raise ValueError(f"width {w} with agg_radius {r}: the CUDA kernel "
+                         f"takes at most {2 * MAX_THREADS - 2 * r} columns")
+    rows = 4 if cpt == 1 else 2
+    w4 = -(-w // 4)
+    threads = round_up(max(rows * w4, -(-cols // cpt)), 32)
+    sums_read = round_up(4 + 2 * r, 4)
+    row_stride = 4 * w4 + sums_read - 4
+    smem = 4 * (4 * rows * row_stride + 2 * rows * 4 * w4 + (rows + 2 * r) * w)
+    if threads > MAX_THREADS or smem > SMEM_PER_BLOCK:
+        raise ValueError(f"width {w} with agg_radius {r} needs {threads} "
+                         f"threads and {smem} B of shared memory a block")
+    return Band(rows, cpt, threads, smem)
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -134,20 +192,17 @@ def disparity_wta(census_l: torch.Tensor, census_r: torch.Tensor,
     cr = census_r.contiguous()
     h, w = cl.shape
     dev = cl.device
+    band = band_config(w, agg_radius, max_disp)
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
     if h * w == 0:
         return out
-    agg = torch.empty((max_disp, h, w), dtype=torch.float32, device=dev)
-    bestd = torch.empty((h, w), dtype=torch.int32, device=dev)
-    bestrd = torch.empty_like(bestd)
-    cand = torch.empty_like(out)
     k = 2 * agg_radius + 1
     err = _lib().plvs_stereo_wta(
-        cl.data_ptr(), cr.data_ptr(), agg.data_ptr(), bestd.data_ptr(),
-        bestrd.data_ptr(), cand.data_ptr(), out.data_ptr(), h, w, max_disp,
+        cl.data_ptr(), cr.data_ptr(), out.data_ptr(), h, w, max_disp,
         agg_radius, 1.0 / (k * k), uniqueness, lr_thresh,
+        band.cols_per_thread, band.threads, band.smem_bytes,
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "stereo_wta kernels")
+    _build.check(err, "stereo_wta kernel")
     launches += 1
     return out
 
@@ -157,6 +212,7 @@ def _lib():
     fn = lib.plvs_stereo_wta
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
     return lib

@@ -20,7 +20,8 @@ dense TSDF mapping and per-keyframe incremental meshing — and prints:
 * over a window of steady frames traced by ``torch.profiler``: device busy
   time per frame (sum of the durations of the device ops: kernels, copies
   and memsets), the device's idle share of the wall time, device ops per
-  frame, and the device ops and host ops that take the most time.
+  frame, the device ops and host ops that take the most time, and the
+  launches per frame and device time per launch of the port's own kernels.
 
 The last line is one JSON object with the headline numbers. Needs a CUDA
 card; imports nothing of jax or plvs_tpu.
@@ -39,6 +40,10 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+# the device kernels of csrc/*.cu (K1, K2, K3), by name
+PORT_KERNELS = ("hamming_kernel", "cc_cluster_kernel", "stereo_band_kernel")
 
 
 def _stage_timer(torch, totals, counts, name, fn):
@@ -196,6 +201,12 @@ def main() -> int:
     for name, (cnt, us) in sorted(by_kernel.items(),
                                   key=lambda kv: -kv[1][1])[:15]:
         print(f"  {name[:90]:90s} {cnt / nw:8.1f} {us / 1e3 / nw:9.4f}")
+    port_kernels = {
+        kname: {"launches_per_frame": cnt / nw, "us_per_launch": us / cnt}
+        for name, (cnt, us) in by_kernel.items()
+        for kname in PORT_KERNELS if kname in name}
+    print("port kernels (launches/frame, device us per launch): "
+          + json.dumps(port_kernels))
     print(prof.key_averages().table(sort_by="self_cpu_time_total",
                                     row_limit=15))
     # the profiler slows the host several-fold, so the idle share is taken
@@ -213,7 +224,8 @@ def main() -> int:
         "device_busy_ms_per_frame": busy_us / 1e3 / nw,
         "device_idle_share": idle,
         "device_idle_share_profiled": idle_profiled,
-        "device_ops_per_frame": len(kern) / nw}))
+        "device_ops_per_frame": len(kern) / nw,
+        "port_kernels": port_kernels}))
     return 0
 
 

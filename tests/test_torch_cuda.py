@@ -7,7 +7,9 @@ jax or plvs_tpu, so they also run on a GPU machine that has no jax:
 
 K1 and K2 compute integer functions, and K3's float steps are rounded once
 each in the same order in the kernel and its plain version, so every
-comparison is exact.
+comparison is exact. K2 runs at every half-resolution grid of the cameras
+the repo configures and on grids that defeat a bounded sweep count; K3 at
+D in {3, 16, 64, 128}, r in {1, 2, 3}, ragged, main-path and KITTI shapes.
 """
 
 import numpy as np
@@ -65,9 +67,16 @@ def test_cc_kernel_matches_plain_on_a_frame(dev):
     assert torch.equal(got, cc_labels.cc_min_labels_plain(init, conn, None))
 
 
-def test_cc_kernel_matches_plain_on_random_links(dev):
+# K2's cluster holds up to 232,448 cells: every grid below fits, the last
+# ones are 640x480's, EuRoC's, KITTI's and 1280x720's half-resolution grids
+CC_SHAPES = [(96, 160), (1, 1), (1, 320), (240, 1), (240, 320), (240, 376),
+             (188, 620), (360, 640)]
+
+
+@pytest.mark.parametrize("h,w", CC_SHAPES)
+def test_cc_kernel_matches_plain_on_random_links(dev, h, w):
+    """Symmetric random links, cyclic across both borders."""
     rng = np.random.default_rng(3)
-    h, w = 96, 160
     mask = rng.random((h, w)) < 0.6
     init = np.where(mask, rng.permutation(h * w).reshape(h, w),
                     h * w).astype(np.int32)
@@ -83,14 +92,51 @@ def test_cc_kernel_matches_plain_on_random_links(dev):
         bits |= back.astype(np.int32) << (ci + 1)
     ti = torch.from_numpy(init).to(dev)
     tb = torch.from_numpy(bits).to(dev)
-    assert torch.equal(cc_labels.cc_min_labels(ti, tb),
-                       cc_labels.cc_min_labels_plain(ti, tb, None))
+    before = cc_labels.launches
+    got = cc_labels.cc_min_labels(ti, tb)
+    assert cc_labels.launches == before + 1
+    assert torch.equal(got, cc_labels.cc_min_labels_plain(ti, tb, None))
 
 
-@pytest.mark.parametrize("h,w,d,census", [(480, 640, 64, "shifted"),
-                                          (37, 150, 16, "random"),
-                                          (481, 641, 128, "shifted")])
-def test_stereo_wta_kernel_matches_plain(dev, h, w, d, census):
+@pytest.mark.parametrize("h,w", CC_SHAPES[1:])
+@pytest.mark.parametrize("grid", ["full_grid", "empty", "diagonal_staircase",
+                                  "spiral", "random_links",
+                                  "random_wrapping_links"])
+def test_cc_kernel_matches_plain_on_adversarial_grids(dev, grid, h, w):
+    grids = {name: (init, bits) for name, init, bits in
+             synthetic.cc_grids(h, w, np.random.default_rng(h * 1000 + w))}
+    init, bits = (torch.from_numpy(a).to(dev) for a in grids[grid])
+    assert torch.equal(cc_labels.cc_min_labels(init, bits),
+                       cc_labels.cc_min_labels_plain(init, bits, None))
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_cc_kernel_capacity(dev, extra):
+    """A grid of exactly the cluster's capacity runs; one cell more is
+    refused before any launch."""
+    h, w = 8, cc_labels.CLUSTER_CAPACITY // 8 + extra
+    rng = np.random.default_rng(5)
+    init = torch.from_numpy(rng.permutation(h * w).reshape(h, w).astype(
+        np.int32)).to(dev)
+    mask = rng.random((h, w)) < 0.7
+    bits = torch.from_numpy(synthetic.link_bits(mask)).to(dev)
+    if extra:
+        before = cc_labels.launches
+        with pytest.raises(ValueError, match="capacity"):
+            cc_labels.cc_min_labels(init, bits)
+        assert cc_labels.launches == before
+    else:
+        assert torch.equal(cc_labels.cc_min_labels(init, bits),
+                           cc_labels.cc_min_labels_plain(init, bits, None))
+
+
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("d", [3, 16, 64, 128])
+@pytest.mark.parametrize("h,w,census", [(37, 150, "random"),
+                                        (480, 640, "shifted"),
+                                        (481, 641, "shifted"),
+                                        (376, 1241, "shifted")])
+def test_stereo_wta_kernel_matches_plain(dev, h, w, census, d, r):
     rng = np.random.default_rng(h + w + d)
     if census == "random":
         cl, cr = (torch.from_numpy(rng.integers(
@@ -103,10 +149,17 @@ def test_stereo_wta_kernel_matches_plain(dev, h, w, d, census):
         cl = stereo_depth.census_transform(left)
         cr = stereo_depth.census_transform(right)
     before = stereo.launches
-    got = stereo.disparity_wta(cl, cr, max_disp=d)
+    got = stereo.disparity_wta(cl, cr, max_disp=d, agg_radius=r)
     assert stereo.launches == before + 1
     assert got.device.type == "cuda" and got.dtype == torch.float32
-    ref = stereo.disparity_wta_plain(cl, cr, max_disp=d)
+    ref = stereo.disparity_wta_plain(cl, cr, max_disp=d, agg_radius=r)
     assert torch.equal(got, ref)
-    if census == "shifted":
+    if census == "shifted" and d >= 16:
         assert (got > 0).float().mean() > 0.9
+
+
+def test_stereo_wta_kernel_rejects_a_textureless_pair(dev):
+    flat = stereo_depth.census_transform(torch.zeros((480, 640), device=dev))
+    got = stereo.disparity_wta(flat, flat)
+    assert torch.equal(got, stereo.disparity_wta_plain(flat, flat))
+    assert bool((got < 0).all())

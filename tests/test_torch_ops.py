@@ -159,6 +159,37 @@ def test_cc_random_links(rng):
     np.testing.assert_array_equal(out.numpy(), _components_reference(init, bits))
 
 
+@pytest.mark.parametrize("grid", ["full_grid", "empty", "diagonal_staircase",
+                                  "spiral", "random_links",
+                                  "random_wrapping_links"])
+def test_cc_plain_on_adversarial_grids(grid):
+    """The grids chip_smoke.py and the card tests hold K2 to: the uncapped
+    plain version reaches the exact component minimum (scipy)."""
+    grids = {name: (init, bits) for name, init, bits in
+             tsyn.cc_grids(24, 40, np.random.default_rng(11))}
+    init, bits = grids[grid]
+    out = cc_labels.cc_min_labels_plain(torch.from_numpy(init),
+                                        torch.from_numpy(bits), None)
+    np.testing.assert_array_equal(out.numpy(),
+                                  _components_reference(init, bits))
+
+
+@pytest.mark.parametrize("h,w", [(240, 320), (240, 376), (188, 620),
+                                 (360, 640), (1, 232448), (8, 29056)])
+def test_cc_cluster_holds_every_camera_grid(h, w):
+    """640x480, EuRoC, KITTI and 1280x720 half-resolution grids, and grids
+    of exactly the capacity, fit K2's 8-block cluster."""
+    cc_labels.check_capacity(h, w)
+    assert cc_labels.smem_per_block(h, w) <= cc_labels.SMEM_PER_BLOCK
+    assert h * w <= cc_labels.CLUSTER_CAPACITY == 232448
+
+
+@pytest.mark.parametrize("h,w", [(1, 232449), (8, 29057), (483, 482)])
+def test_cc_cluster_refuses_grids_over_capacity(h, w):
+    with pytest.raises(ValueError, match="capacity of 232448 cells"):
+        cc_labels.check_capacity(h, w)
+
+
 def test_scatter_duplicates_keep_the_last_source():
     """kp_pt.at[tgt].set(src, mode="drop") on XLA:CPU keeps the last write
     for a duplicated target; the port resolves duplicates the same way on

@@ -105,6 +105,37 @@ def test_wta_wrapper_takes_the_plain_version_on_the_cpu(rng):
         tst.disparity_wta(cl, cr, max_disp=2)
 
 
+@pytest.mark.parametrize("r", [0, 1, 2, 3])
+def test_wta_band_fits_shared_memory(r):
+    """K3's band fits one block for every width up to 1280 at r <= 3."""
+    for w in range(1, 1281):
+        band = tst.band_config(w, r)
+        assert band.smem_bytes <= tst.SMEM_PER_BLOCK == 232448
+        assert band.threads <= tst.MAX_THREADS and band.threads % 32 == 0
+        assert band.threads * band.cols_per_thread >= w + 2 * r
+        assert band.rows == (4 if band.cols_per_thread == 1 else 2)
+
+
+def test_wta_band_at_the_main_path_shape():
+    """480x640, r = 3: 120 blocks of 4 rows, one thread per column of the
+    band and its halo, 85 KB of shared memory (vertical sums of two
+    disparities, double-buffered, in rows of 648 for 16-B loads; right
+    winners; 10 right census rows)."""
+    band = tst.band_config(640, 3)
+    assert band == tst.Band(rows=4, cols_per_thread=1, threads=672,
+                            smem_bytes=4 * (2 * 2 * 4 * 648 + 2 * 4 * 640
+                                            + 10 * 640))
+    assert -(-480 // band.rows) == 120
+
+
+@pytest.mark.parametrize("w,r,d", [(640, 8, 64), (640, -1, 64),
+                                   (1403, 3, 64), (2000, 0, 64),
+                                   (640, 3, 8193)])
+def test_wta_band_refuses_what_the_kernel_does_not_take(w, r, d):
+    with pytest.raises(ValueError):
+        tst.band_config(w, r, d)
+
+
 def test_disparity_matches_jnp_path_away_from_borders(rng):
     """The port (K3 semantics) against the JAX package's jnp volume path,
     masked at the borders as tests/test_ops.py does: the two differ only in
