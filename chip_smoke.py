@@ -8,18 +8,23 @@ started together). Phase 1 holds each kernel against its plain PyTorch
 version on the card (exact equality: K1 and K2 are integer functions, and
 K3 rounds its few float steps once each in the same order as its plain
 version) at the shapes the main paths give it plus ragged and adversarial
-inputs (K2's grids also at KITTI's 188x620 and 1280x720's 360x640, K3 also
-at r = 1 and at 376x1241). It times each kernel with one CUDA-event pair
-around 100 back-to-back calls queued behind a spin kernel (device time
-only), the plain versions per call; checks with torch.profiler that one
-call of K2 and one of K3 each run exactly one device kernel; and measures
-the device memory one K3 call adds. Phase 2 drives slice 1's path —
+inputs (K1 also at fragment and tile edges, on words with the high bit set
+and on strided views; K2's grids also at KITTI's 188x620 and 1280x720's
+360x640, K3 also at r = 1 and at 376x1241). It times each kernel with one
+CUDA-event pair around 100 back-to-back calls queued behind a spin kernel
+(device time only; K1 at each of phase 2's shapes), the plain versions per
+call, and K1's library yardsticks (the +-1 GEMM that the JAX package runs
+for big products, as ``torch._int_mm`` and as ``torch.mm`` in bf16, each
+checked equal to K1); checks with torch.profiler that one call of each
+kernel runs exactly one device kernel; and measures the device memory one
+K3 call adds. Phase 2 drives slice 1's path —
 ``System.track_rgbd``, synchronous RGB-D tracking with points and lines at
 640x480, 1024 ORB features, 8 levels, 160 keylines, keyframe backend off —
 over bench.py's structured-wall scene, with every launch counter set to 0
 just before and read just after, checks that every frame is tracked and
 the trajectory's ATE is within the bound below, and prints K1's launches
-by shape. Phase 3 drives slice 2's path the same way —
+by shape and their device time (launches x device time at each shape)
+beside its bound. Phase 3 drives slice 2's path the same way —
 ``System.track_stereo`` on rectified pairs of the same scene (the right
 image one baseline to the right) with dense TSDF mapping and per-keyframe
 incremental meshing — and checks tracking, ATE, one K3 launch per
@@ -66,6 +71,9 @@ REF_MESH_TRIANGLES_INCREMENTAL = 231664
 WALL_Z = 3.0
 
 N_FRAMES = 120
+# K1's (Q, K) shapes on phase 2's path
+K1_MIX_SHAPES = ((4096, 1024), (2048, 1024), (1024, 1024), (512, 160),
+                 (256, 160), (128, 160))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 CUDA_CORE_OPS_PER_S = 67e12   # H100 SXM non-tensor peak (float32 figure)
 # ~0.1 s of spin at the H100's clocks: longer than the host takes to
@@ -121,21 +129,38 @@ def _short(kernel_name: str) -> str:
     return name.split("(")[0][:60]
 
 
-def _print_device_ops(torch, label: str, fn) -> list:
-    """Trace one warm call of ``fn`` with torch.profiler and print the
-    device operations it ran (name and device us); returns them."""
+def _device_ops_per_call(torch, calls: dict) -> dict:
+    """Trace one warm call of each function of ``calls`` with torch.profiler
+    and print the device operations each ran (name and device us); returns
+    them by label. All calls share one profiler session (a second session
+    in the process saw no device events once cuBLAS had started after the
+    first); each call follows a short spin kernel, which marks its start."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for fn in calls.values():
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for fn in calls.values():
+            torch.cuda._sleep(1000)
+            fn()
         torch.cuda.synchronize()
-    ops = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    print(f"phase 1: {label}: one call ran {len(ops)} device op(s): "
-          + "; ".join(f"{_short(n)} {us:.3f} us" for n, us in ops))
-    return ops
+    events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    per_call = []
+    for _, name, us in events:
+        if "spin_kernel" in name:
+            per_call.append([])
+        elif per_call:
+            per_call[-1].append((name, us))
+    if len(per_call) != len(calls):
+        _fail(f"torch.profiler saw {len(per_call)} of {len(calls)} spin "
+              "markers")
+    for label, ops in zip(calls, per_call):
+        print(f"phase 1: {label}: one call ran {len(ops)} device op(s): "
+              + "; ".join(f"{_short(n)} {us:.3f} us" for n, us in ops))
+    return dict(zip(calls, per_call))
 
 
 def _bound_ms(n_bytes: float, n_ops: float):
@@ -299,17 +324,20 @@ def main() -> int:
                 np.uint32)
         return torch.from_numpy(a.view(np.int32)).to(dev)
 
-    # main-path shapes: point searches are [candidate bucket 512..4096] x
-    # [1024 keypoints]; the line match is [line bucket 128..512] x [160]
-    k1_cases = [("4096x1024", words(4096), words(1024)),
-                ("512x1024", words(512), words(1024)),
-                ("512x160", words(512), words(160)),
-                ("128x160", words(128), words(160)),
-                ("160x512", words(160), words(512)),
-                ("1x1", words(1), words(1)),
-                ("1000x999", words(1000), words(999)),
-                ("zeros_vs_ones", words(300, 0), words(257, 0xFFFFFFFF)),
-                ("ones_vs_ones", words(65, 0xFFFFFFFF), words(130, 0xFFFFFFFF))]
+    # phase 2's shapes (point searches [candidate bucket 512..4096] x [1024
+    # keypoints], line matches [line bucket 128..512] x [160]), a stereo row
+    # match, fragment and tile edges, extremes, words with the high bit set,
+    # and a strided view
+    k1_cases = [(f"{q}x{k}", words(q), words(k)) for q, k in K1_MIX_SHAPES]
+    k1_cases += [(f"{q}x{k}", words(q), words(k)) for q, k in
+                 ((512, 1024), (160, 512), (1, 1), (15, 7), (17, 9),
+                  (63, 65), (129, 257), (1000, 999), (4097, 1023))]
+    k1_cases += [("zeros_vs_ones", words(300, 0), words(257, 0xFFFFFFFF)),
+                 ("ones_vs_ones", words(65, 0xFFFFFFFF),
+                  words(130, 0xFFFFFFFF)),
+                 ("high_bit_set", words(100) | -2 ** 31,
+                  words(77, 0x80000000)),
+                 ("strided_view", words(1100)[::3], words(600)[1::2])]
     k1_err = 0
     for name, a, b in k1_cases:
         got = hamming.hamming_matrix(a, b)
@@ -320,24 +348,46 @@ def main() -> int:
         print(f"phase 1: K1 hamming {name}: max_abs_err {err}")
         if err:
             _fail(f"K1 disagrees with its plain version on {name}")
-    for name, a, b in k1_cases[:4]:
-        print(f"phase 1: K1 at {name} (a main-path shape): kernel "
-              f"{_time_ms(torch, lambda: hamming.hamming_matrix(a, b)):.6f} ms")
+    k1_ms_at = {}
+    for name, a, b in k1_cases[:len(K1_MIX_SHAPES)]:
+        k1_ms_at[(a.shape[0], b.shape[0])] = ms = _time_ms(
+            torch, lambda: hamming.hamming_matrix(a, b))
+        print(f"phase 1: K1 at {name} (a phase-2 shape): kernel {ms:.6f} ms")
     a, b = k1_cases[0][1], k1_cases[0][2]
     q, k = a.shape[0], b.shape[0]
-    k1_ms = _time_ms(torch, lambda: hamming.hamming_matrix(a, b))
+    k1_ms = k1_ms_at[(q, k)]
     k1_plain_ms = _time_ms_per_call(torch, lambda: hamming.hamming_plain(a, b))
+    # the library calls on the unpacked bits (unpacked outside the timed
+    # window): the JAX package's big-product route, (256 - <s_q, s_k>) / 2
+    # with s = +-1, as one GEMM, and cdist on {0, 1}
+    k1_ref = hamming.hamming_matrix(a, b)
     shifts = torch.arange(32, device=dev)
-    bq = ((a.to(torch.int64)[:, :, None] >> shifts) & 1).reshape(q, 256).float()
-    bk = ((b.to(torch.int64)[:, :, None] >> shifts) & 1).reshape(k, 256).float()
-    if not torch.equal(torch.cdist(bq, bk, p=0).to(torch.int32),
-                       hamming.hamming_matrix(a, b)):
-        _fail("the torch.cdist(p=0) yardstick disagrees with K1")
-    k1_lib_ms = _time_ms(torch, lambda: torch.cdist(bq, bk, p=0))
+    bq = ((a.to(torch.int64)[:, :, None] >> shifts) & 1).reshape(q, 256)
+    bk = ((b.to(torch.int64)[:, :, None] >> shifts) & 1).reshape(k, 256)
+    s8q, s8k = (2 * bq - 1).to(torch.int8), (2 * bk - 1).to(torch.int8)
+    bfq, bfk = s8q.to(torch.bfloat16), s8k.to(torch.bfloat16)
+    fq, fk = bq.float(), bk.float()
+    gemms = {"torch._int_mm(int8 -> int32)":
+             lambda: torch._int_mm(s8q, s8k.t()),
+             "torch.mm(bf16 -> float32)":
+             lambda: torch.mm(bfq, bfk.t(), out_dtype=torch.float32)}
+    others = {"torch.matmul(bf16 -> bf16)": lambda: torch.matmul(bfq, bfk.t()),
+              "torch.cdist(p=0)": lambda: torch.cdist(fq, fk, p=0)}
+    lib_ms = {}
+    for name, fn in {**gemms, **others}.items():
+        r = fn()
+        ham = r if "cdist" in name else (256 - r.float()) * 0.5
+        if not torch.equal(ham.to(torch.int32), k1_ref):
+            _fail(f"the {name} yardstick disagrees with K1")
+        lib_ms[name] = _time_ms(torch, fn)
+    k1_lib = min(gemms, key=lib_ms.get)
+    k1_lib_ms = lib_ms[k1_lib]
     k1_bound, k1_by = _bound_ms((q + k) * 32 + q * k * 4, q * k * 24)
-    print(f"phase 1: K1 at {q}x{k}: kernel {k1_ms:.4f} ms, plain "
-          f"{k1_plain_ms:.4f} ms, torch.cdist(p=0) {k1_lib_ms:.4f} ms, bound "
-          f"{k1_bound:.4f} ms ({k1_by})")
+    print(f"phase 1: K1 at {q}x{k}: kernel {k1_ms:.6f} ms, plain "
+          f"{k1_plain_ms:.4f} ms, bound {k1_bound:.6f} ms ({k1_by}); library "
+          "calls, each equal to K1: " + ", ".join(
+              f"{n} {v:.6f} ms" for n, v in lib_ms.items())
+          + f"; yardstick {k1_lib} (the faster GEMM with a 32-bit output)")
 
     R0, t0_ = synthetic.default_trajectory(N_FRAMES)[0]
     g0, d0 = scene.render(R0, t0_)
@@ -378,9 +428,6 @@ def main() -> int:
         if name.startswith(("spiral", "full_grid")):
             ms = _time_ms(torch, lambda: cc_labels.cc_min_labels(init, conn))
             print(f"phase 1: K2 at {name}: kernel {ms:.6f} ms")
-    if len(_print_device_ops(torch, "K2", lambda: cc_labels.cc_min_labels(
-            init_r, conn_r))) != 1:
-        _fail("one call of K2 did not run exactly one device kernel")
     n_links = int(sum(((conn_r >> ci) & 1).sum() for ci in range(8)))
     k2_bound, k2_by = _bound_ms(12 * h2 * w2, 8 * h2 * w2 + 4 * n_links)
     print(f"phase 1: K2 at {h2}x{w2}: kernel {k2_ms:.4f} ms, plain "
@@ -430,9 +477,6 @@ def main() -> int:
     k3_ms = _time_ms(torch, lambda: stereo.disparity_wta(cl0, cr0))
     k3_plain_ms = _time_ms_per_call(
         torch, lambda: stereo.disparity_wta_plain(cl0, cr0), reps=10)
-    if len(_print_device_ops(torch, "K3",
-                             lambda: stereo.disparity_wta(cl0, cr0))) != 1:
-        _fail("one call of K3 did not run exactly one device kernel")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -451,6 +495,18 @@ def main() -> int:
     print(f"phase 1: K3 at {h3}x{w3}x64: kernel {k3_ms:.4f} ms, plain "
           f"{k3_plain_ms:.4f} ms, bound {k3_bound:.6f} ms ({k3_by}); no "
           "single PyTorch call computes census-stereo winner-take-all")
+
+    (_, a1, b1), (_, a2, b2) = k1_cases[0], k1_cases[5]
+    ops = _device_ops_per_call(torch, {
+        f"K1 at {a1.shape[0]}x{b1.shape[0]}":
+            lambda: hamming.hamming_matrix(a1, b1),
+        f"K1 at {a2.shape[0]}x{b2.shape[0]}":
+            lambda: hamming.hamming_matrix(a2, b2),
+        "K2": lambda: cc_labels.cc_min_labels(init_r, conn_r),
+        "K3": lambda: stereo.disparity_wta(cl0, cr0)})
+    for label, o in ops.items():
+        if len(o) != 1:
+            _fail(f"one call of {label} did not run exactly one device kernel")
 
     # -- phase 2: slice 1's main path (RGB-D tracking) ---------------------
     cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
@@ -479,8 +535,17 @@ def main() -> int:
           f"{np.percentile(steady, 50):.2f} p90 {np.percentile(steady, 90):.2f} "
           f"(first frame {ms[0]:.1f}); map {system.map_statistics()}; ATE-RMSE "
           f"{ate:.6f} m (bound {ATE_BOUND_M:.6f} m); launches {launches}")
+    mix = dict(hamming.shapes)
     print("phase 2: K1 launches by Q x K: " + ", ".join(
-        f"{q}x{k} {n}" for (q, k), n in sorted(hamming.shapes.items())))
+        f"{q}x{k} {n}" for (q, k), n in sorted(mix.items())))
+    for q, k in mix.keys() - k1_ms_at.keys():
+        a, b = words(q), words(k)
+        k1_ms_at[(q, k)] = _time_ms(torch, lambda: hamming.hamming_matrix(a, b))
+    k1_sum = sum(n * k1_ms_at[s] for s, n in mix.items())
+    k1_sum_bound = sum(n * _bound_ms((q + k) * 32 + q * k * 4, q * k * 24)[0]
+                       for (q, k), n in mix.items())
+    print(f"phase 2: K1 device ms per {N_FRAMES} frames (launches x device "
+          f"time at each shape): {k1_sum:.6f} (bound {k1_sum_bound:.6f})")
     if not all(s == OK for s in states[1:]):
         _fail(f"tracking states {states}")
     if launches["hamming"] < 2 * (N_FRAMES - 1):
@@ -498,19 +563,19 @@ def main() -> int:
          "replaces": "plvs_tpu/ops/hamming.py:84",
          "launches": launches["hamming"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": k1_lib_ms},
+         "bound_by": k1_by, "library_ms": k1_lib_ms, "library": k1_lib},
         {"name": "cc_min_labels", "route": "cuda",
          "source": "plvs_tpu_torch/csrc/cc_labels.cu",
          "replaces": "plvs_tpu/ops/cc_labels.py:95",
          "launches": launches["cc_labels"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+         "bound_by": k2_by, "library_ms": None, "library": None},
         {"name": "disparity_wta", "route": "cuda",
          "source": "plvs_tpu_torch/csrc/stereo_wta.cu",
          "replaces": "plvs_tpu/ops/stereo.py:161",
          "launches": launches3["stereo_wta"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": None},
+         "bound_by": k3_by, "library_ms": None, "library": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

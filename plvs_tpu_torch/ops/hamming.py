@@ -6,7 +6,8 @@ hold the uint32 bit patterns of the JAX package's ``[N, 8]`` uint32 arrays
 (``arr.view(np.int32)``); the result is the ``[Q, K]`` int32 matrix of
 popcount(xor) — exact, so kernel and plain version agree bit for bit.
 
-* CUDA tensors: the hand-written kernel in ``csrc/hamming.cu``.
+* CUDA tensors: the hand-written kernel in ``csrc/hamming.cu`` (1-bit
+  tensor-core products, one launch a call).
 * CPU tensors: :func:`hamming_plain`.
 """
 

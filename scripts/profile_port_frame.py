@@ -43,7 +43,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 # the device kernels of csrc/*.cu (K1, K2, K3), by name
-PORT_KERNELS = ("hamming_kernel", "cc_cluster_kernel", "stereo_band_kernel")
+PORT_KERNELS = ("hamming_bmma_kernel", "cc_cluster_kernel", "stereo_band_kernel")
 
 
 def _stage_timer(torch, totals, counts, name, fn):

@@ -37,16 +37,63 @@ def _words(rng, n, dev):
     return torch.from_numpy(a.view(np.int32)).to(dev)
 
 
-@pytest.mark.parametrize("q,k", [(1, 1), (63, 65), (512, 160),
-                                 (4096, 1024)])
-def test_hamming_kernel_matches_plain(dev, q, k):
+# phase 2's shapes, then the edges of K1's 16 x 8 fragments, 16 x 32 warp
+# tiles and 16 x 128 blocks
+K1_SHAPES = [(4096, 1024), (2048, 1024), (1024, 1024), (512, 160),
+             (256, 160), (128, 160), (1, 1), (15, 7), (17, 9), (63, 65),
+             (129, 257), (1000, 999), (4097, 1023)]
+# (q, k, kind of words): random words at every shape, the other kinds at
+# the small main-path shapes and across the edges
+K1_CASES = ([(q, k, "random") for q, k in K1_SHAPES]
+            + [(q, k, kind) for q, k in K1_SHAPES[3:] if q * k < 4 * 10 ** 6
+               for kind in ("zeros_vs_ones", "ones_vs_ones", "high_bit_set",
+                            "strided_view")])
+
+
+def _k1_inputs(rng, q, k, kind, dev):
+    if kind == "random":
+        return _words(rng, q, dev), _words(rng, k, dev)
+    if kind == "zeros_vs_ones":
+        return (torch.zeros((q, 8), dtype=torch.int32, device=dev),
+                torch.full((k, 8), -1, dtype=torch.int32, device=dev))
+    if kind == "ones_vs_ones":
+        return (torch.full((q, 8), -1, dtype=torch.int32, device=dev),
+                torch.full((k, 8), -1, dtype=torch.int32, device=dev))
+    if kind == "high_bit_set":   # negative int32 words
+        return _words(rng, q, dev) | -2 ** 31, _words(rng, k, dev) | -2 ** 31
+    return _words(rng, 3 * q, dev)[::3], _words(rng, 2 * k, dev)[1::2]
+
+
+@pytest.mark.parametrize("q,k,kind", K1_CASES)
+def test_hamming_kernel_matches_plain(dev, q, k, kind):
     rng = np.random.default_rng(q * 7919 + k)
-    a, b = _words(rng, q, dev), _words(rng, k, dev)
+    a, b = _k1_inputs(rng, q, k, kind, dev)
     before = hamming.launches
     got = hamming.hamming_matrix(a, b)
     assert hamming.launches == before + 1
     assert got.device.type == "cuda" and got.dtype == torch.int32
-    assert torch.equal(got, hamming.hamming_plain(a, b))
+    ref = hamming.hamming_plain(a, b)
+    assert torch.equal(got, ref)
+    if kind == "zeros_vs_ones":
+        assert bool((got == 256).all())
+    if kind == "ones_vs_ones":
+        assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("q,k", [(4096, 1024), (128, 160)])
+def test_hamming_kernel_is_one_device_kernel(dev, q, k):
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(1)
+    a, b = _words(rng, q, dev), _words(rng, k, dev)
+    hamming.hamming_matrix(a, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hamming.hamming_matrix(a, b)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "hamming_bmma_kernel" in names[0], names
 
 
 def test_cc_kernel_matches_plain_on_a_frame(dev):

@@ -47,6 +47,29 @@ def test_hamming_plain_matches_pallas_interpret(rng, kernel):
         hamming.hamming_matrix(_t(dq), _t(dk)).numpy(), ref)
 
 
+@pytest.mark.parametrize("q,k,kind", [(600, 512, "random"),
+                                      (1024, 520, "random"),
+                                      (512, 512, "random"),
+                                      (600, 512, "high_bit_set"),
+                                      (512, 600, "zeros_vs_ones")])
+def test_hamming_matches_jax_big_product_branch(rng, q, k, kind):
+    """At Q x K >= 512 x 512 the JAX package's hamming_matrix takes its
+    MXU route, hamming_mxu_xla: (256 - <s_q, s_k>) / 2 with s = +-1 in
+    bf16 — the formulation K1's library yardsticks compute on the card."""
+    if kind == "zeros_vs_ones":
+        dq, dk = _words(rng, q, 0), _words(rng, k, 0xFFFFFFFF)
+    else:
+        dq, dk = _words(rng, q), _words(rng, k)
+    if kind == "high_bit_set":
+        dq |= np.uint32(0x80000000)
+    ref = np.asarray(jham.hamming_matrix(jnp.asarray(dq), jnp.asarray(dk)))
+    np.testing.assert_array_equal(
+        ref, np.asarray(jham.hamming_mxu_xla(jnp.asarray(dq), jnp.asarray(dk))))
+    out = hamming.hamming_matrix(_t(dq), _t(dk))
+    assert out.dtype == torch.int32 and out.shape == (q, k)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
 def test_hamming_extremes(rng):
     zeros, ones = _words(rng, 5, 0), _words(rng, 6, 0xFFFFFFFF)
     out = hamming.hamming_matrix(_t(zeros), _t(ones)).numpy()
