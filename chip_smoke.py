@@ -28,7 +28,17 @@ beside its bound. Phase 3 drives slice 2's path the same way —
 ``System.track_stereo`` on rectified pairs of the same scene (the right
 image one baseline to the right) with dense TSDF mapping and per-keyframe
 incremental meshing — and checks tracking, ATE, one K3 launch per
-keyframe, and the dense map against the JAX package's.
+keyframe, and the dense map against the JAX package's. Phase 4 drives
+slice 5's path — ``System.track_rgbd`` as in phase 2 but with the
+synchronous keyframe backend on (``local_ba=True`` with bench.py's fixed
+BA shapes: culling, line triangulation and neighbour fuse through K1,
+landmark maintenance, the windowed local bundle adjustment, keyframe
+culling) — and checks tracking, the ATE and the live map against the JAX
+package's run of the same configuration, and one finite, non-increasing
+local BA per keyframe whose window gave a problem; it prints the backend's
+stage times per keyframe (synchronised scopes), the LM and CG iterations
+per solve, and K1's launches by shape with their device time beside the
+bound (phase 1 holds K1 exact at the backend's shapes too).
 
 It prints one ``{"kernels": [...]}`` line and ends with one
 ``{"ok": true, "device": {...}}`` line. Any failed phase exits non-zero; so
@@ -38,8 +48,8 @@ file. Imports nothing of jax or plvs_tpu.
 
 from __future__ import annotations
 
-import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -70,15 +80,31 @@ REF_MESH_TRIANGLES_FULL = 413390
 REF_MESH_TRIANGLES_INCREMENTAL = 231664
 WALL_Z = 3.0
 
+# JAX package's figures on phase 4's run (CPU run of
+# JAX_PLATFORMS=cpu python scripts/reference_ate_rgbd_lines.py --local-ba,
+# 120 frames: all OK, 12 keyframes made, 1 culled, 153 s). The port is held
+# to the ATE bound below and its live keyframes, points and lines within
+# +-25% of these.
+REF_LBA_ATE_M = 0.0038166583429642535
+LBA_ATE_BOUND_M = max(1.5 * REF_LBA_ATE_M, REF_LBA_ATE_M + 0.01)
+REF_LBA_MAP = {"keyframes": 11, "points": 1612, "lines": 150}
+
 N_FRAMES = 120
 # K1's (Q, K) shapes on phase 2's path
 K1_MIX_SHAPES = ((4096, 1024), (2048, 1024), (1024, 1024), (512, 160),
                  (256, 160), (128, 160))
+# K1's shapes on phase 4's keyframe backend: line matches of a keyframe's
+# 128 keyline rows against 1-4 neighbours' (stacked), fuse of its points
+# against 1-5 neighbours' 1024 keypoints (stacked)
+K1_BACKEND_SHAPES = ((128, 128), (128, 512), (1024, 5120))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 CUDA_CORE_OPS_PER_S = 67e12   # H100 SXM non-tensor peak (float32 figure)
 # ~0.1 s of spin at the H100's clocks: longer than the host takes to
 # enqueue _time_ms's calls, so they queue up behind it
 SPIN_CYCLES = 200_000_000
+# shortest of _device_ops_per_call's spin markers (~25 us at the H100's
+# clocks); call i's marker is 4^i times as long
+MARK_CYCLES = 50_000
 
 
 def _fail(msg: str) -> None:
@@ -129,64 +155,93 @@ def _short(kernel_name: str) -> str:
     return name.split("(")[0][:60]
 
 
-def _device_ops_per_call(torch, calls: dict) -> dict:
-    """Trace one warm call of each function of ``calls`` with torch.profiler
-    and print the device operations each ran (name and device us); returns
-    them by label. All calls share one profiler session (a second session
-    in the process saw no device events once cuBLAS had started after the
-    first); each call follows a short spin kernel, which marks its start."""
+def _marker_index(us: float, us_per_cycle: float) -> int:
+    """Index i of a spin marker of MARK_CYCLES x 4^i cycles, from its
+    device duration; -1 when it lies off the ladder."""
+    ratio = us / (MARK_CYCLES * us_per_cycle)
+    i = round(math.log(ratio, 4)) if ratio > 0 else -1
+    return i if i >= 0 and abs(math.log(ratio, 4) - i) < 0.25 else -1
+
+
+def _clean_segments(events, n: int, us_per_cycle: float) -> list:
+    """Split time-sorted (name, device us) events at the spin markers and
+    keep the ops of call i only where the marker before them reads i and
+    the next reads i + 1 (n closes a round): a segment whose bounding
+    marker was dropped would merge two calls. Returns n lists of op lists."""
+    segments = []
+    for name, us in events:
+        if "spin_kernel" in name:
+            segments.append((_marker_index(us, us_per_cycle), []))
+        elif segments:
+            segments[-1][1].append((name, us))
+    clean = [[] for _ in range(n)]
+    for (i, ops), (j, _) in zip(segments, segments[1:]):
+        if 0 <= i < n and j == i + 1:
+            clean[i].append(ops)
+    return clean
+
+
+def _device_ops_per_call(torch, calls: dict, rounds: int = 4) -> dict:
+    """Trace warm calls of each function of ``calls`` with torch.profiler
+    and print the device operations one call ran (name and device us);
+    returns, by label, the op lists of every cleanly bounded call.
+
+    All calls share one profiler session (a second session in the process
+    saw no device events once cuBLAS had started after the first). Call i
+    follows a spin kernel of MARK_CYCLES x 4^i cycles and a longer one
+    closes each round, so a marker's duration names the call after it.
+    CUPTI now and then drops an event from a trace (one card run saw 3 of
+    4 markers in a single round), so the calls run ``rounds`` times and
+    only segments with both bounding markers present are read; each call
+    needs at least one."""
     from torch.profiler import ProfilerActivity, profile
 
+    labels = list(calls)
+    n = len(labels)
+    # cycles -> us at this run's clocks, from the closing marker's length;
+    # a first long spin loads the spin kernel (lazy module loading would
+    # otherwise fall inside the timed pair) and raises the clocks
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     for fn in calls.values():
         fn()
+    torch.cuda._sleep(SPIN_CYCLES)
     torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(MARK_CYCLES * 4 ** n)
+    end.record()
+    end.synchronize()
+    us_per_cycle = start.elapsed_time(end) * 1e3 / (MARK_CYCLES * 4 ** n)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn in calls.values():
-            torch.cuda._sleep(1000)
-            fn()
-        torch.cuda.synchronize()
-    events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
-                    for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    per_call = []
-    for _, name, us in events:
-        if "spin_kernel" in name:
-            per_call.append([])
-        elif per_call:
-            per_call[-1].append((name, us))
-    if len(per_call) != len(calls):
-        _fail(f"torch.profiler saw {len(per_call)} of {len(calls)} spin "
-              "markers")
-    for label, ops in zip(calls, per_call):
+        for _ in range(rounds):
+            for i, fn in enumerate(calls.values()):
+                torch.cuda._sleep(MARK_CYCLES * 4 ** i)
+                fn()
+            torch.cuda._sleep(MARK_CYCLES * 4 ** n)
+            torch.cuda.synchronize()
+    events = [(name, us) for _, name, us in sorted(
+        (e.time_range.start, e.name, e.time_range.elapsed_us())
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)]
+    clean = _clean_segments(events, n, us_per_cycle)
+    for label, segs in zip(labels, clean):
+        if not segs:
+            marks = [round(us, 3) for nm, us in events if "spin_kernel" in nm]
+            _fail(f"torch.profiler traced no call of {label} with both of "
+                  f"its markers in {rounds} rounds (markers, us: {marks}; "
+                  f"{us_per_cycle * 1e3:.4f} ns a cycle)")
+        ops = segs[0]
         print(f"phase 1: {label}: one call ran {len(ops)} device op(s): "
-              + "; ".join(f"{_short(n)} {us:.3f} us" for n, us in ops))
-    return dict(zip(calls, per_call))
+              + "; ".join(f"{_short(nm)} {us:.3f} us" for nm, us in ops)
+              + f" ({len(segs)} of {rounds} rounds cleanly bounded, op "
+              f"counts {[len(s) for s in segs]})")
+    return dict(zip(labels, clean))
 
 
 def _bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-class _SyncStopwatch:
-    """Stage timer for DenseMapper.stopwatch: each scope is synchronised at
-    both ends and its host milliseconds kept under its name."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.ms = {}
-
-    @contextlib.contextmanager
-    def scope(self, name: str):
-        self.torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.torch.cuda.synchronize()
-            self.ms.setdefault(name, []).append(
-                (time.perf_counter() - t0) * 1e3)
 
 
 def _scene(cam, synthetic):
@@ -203,6 +258,7 @@ def _phase3(torch, cam, scene) -> dict:
     from plvs_tpu_torch.ops import cc_labels, hamming, stereo
     from plvs_tpu_torch.slam import System, SystemConfig
     from plvs_tpu_torch.slam.tracking import OK
+    from plvs_tpu_torch.utils.profiling import Stopwatch
 
     cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
                        max_pts=65536, use_lines=True, max_lines=160,
@@ -210,8 +266,8 @@ def _phase3(torch, cam, scene) -> dict:
                        dense_mapping=True, dense_voxel_size=0.02,
                        dense_mesh_every=1, pipelined=False)
     system = System(cam, cfg, device="cuda")
-    watch = _SyncStopwatch(torch)
-    system.dense_mapper.stopwatch = watch
+    watch = Stopwatch(sync_device=torch.device("cuda"))
+    system.set_stopwatch(watch)
     shift = np.array([cam.bf / float(cam.params[0]), 0.0, 0.0], np.float32)
     frames = [(ts, g, scene.render(R, t - shift)[0], R, t)
               for ts, g, _, R, t in scene.sequence(n_frames=N_FRAMES)]
@@ -236,7 +292,9 @@ def _phase3(torch, cam, scene) -> dict:
     _, faces = dm.mesh()
     n_full, n_inc = len(faces), dm.mesher.n_triangles
     steady = np.asarray(ms[1:])
-    per_kf = {k: sum(v) / max(n_kf, 1) for k, v in sorted(watch.ms.items())}
+    per_kf = {k: sum(v) * 1e3 / max(n_kf, 1)
+              for k, v in sorted(watch.samples.items())
+              if k.startswith("dense")}
     print(f"phase 3: {N_FRAMES} stereo frames 640x480, per-frame ms p50 "
           f"{np.percentile(steady, 50):.2f} p90 {np.percentile(steady, 90):.2f} "
           f"(first frame {ms[0]:.1f}; keyframe frames include the "
@@ -270,6 +328,115 @@ def _phase3(torch, cam, scene) -> dict:
             _fail(f"phase 3 {name} {got} not within 25% of JAX's {ref}")
     if med_dz > REF_MEDIAN_ABS_DZ_M + 0.02:
         _fail(f"phase 3 median |z - {WALL_Z}| {med_dz} m: the wall is off")
+    return launches
+
+
+def _k1_bound(q: int, k: int):
+    return _bound_ms((q + k) * 32 + q * k * 4, q * k * 24)
+
+
+def _phase4(torch, cam, scene, k1_ms_at: dict, words) -> dict:
+    """Slice 5's main path: RGB-D tracking with the synchronous keyframe
+    backend; returns the launches."""
+    from plvs_tpu_torch.io import evaluation
+    from plvs_tpu_torch.ops import cc_labels, hamming, stereo
+    from plvs_tpu_torch.slam import System, SystemConfig
+    from plvs_tpu_torch.slam.tracking import OK
+    from plvs_tpu_torch.utils.profiling import Stopwatch
+
+    cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
+                       max_pts=65536, use_lines=True, max_lines=160,
+                       local_ba=True, loop_closing=False, dense_mapping=False,
+                       pipelined=False, depth_upload_decimation=2,
+                       backend_fixed_shapes=True)
+    system = System(cam, cfg, device="cuda")
+    watch = Stopwatch(sync_device=torch.device("cuda"))
+    system.set_stopwatch(watch)
+    lm = system.local_mapper
+    # count the windows that gave a BA problem: each must get one solve
+    gathered = []
+    gather = lm._gather_ba
+
+    def counting_gather(window):
+        packed = gather(window)
+        gathered.append(packed is not None)
+        return packed
+
+    lm._gather_ba = counting_gather
+    frames = list(scene.sequence(n_frames=N_FRAMES))
+    hamming.launches = cc_labels.launches = stereo.launches = 0
+    hamming.shapes.clear()
+    states, ms = [], []
+    for ts, g, d, _, _ in frames:
+        t1 = time.perf_counter()
+        state, _, _ = system.track_rgbd(g, d, ts)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        states.append(int(state))
+    launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
+                "stereo_wta": stereo.launches}
+    mix = dict(hamming.shapes)
+    est = system.trajectory_tum()[:, 1:4]
+    gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
+    ate = evaluation.ate_rmse(est, gt, align=True)
+    stats = system.map_statistics()
+    n_made = system.store._next_kf_uid
+    steady = np.asarray(ms[1:])
+    stages = ("lm.cull", "lm.tri_lines", "lm.fuse", "lm.maint", "lm.ba",
+              "lm.cull_kf", "local_mapping")
+    per_kf = {k: sum(watch.samples.get(k, [])) * 1e3 / max(n_made, 1)
+              for k in stages}
+    frame_ms = float(np.sum(ms))
+    log = lm.ba_log
+    print(f"phase 4: {N_FRAMES} frames 640x480 with the keyframe backend, "
+          f"per-frame ms p50 {np.percentile(steady, 50):.2f} p90 "
+          f"{np.percentile(steady, 90):.2f} (first frame {ms[0]:.1f}; "
+          f"keyframe frames include the synchronised backend); map {stats} "
+          f"(JAX {REF_LBA_MAP}); keyframes made {n_made}, culled "
+          f"{lm.n_culled}; ATE-RMSE {ate:.6f} m (JAX {REF_LBA_ATE_M:.6f} m, "
+          f"bound {LBA_ATE_BOUND_M:.6f} m); launches {launches}")
+    print("phase 4: backend ms per keyframe (synchronised scopes, "
+          f"{n_made} keyframes): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per_kf.items())
+          + f"; backend share of the run "
+          f"{per_kf['local_mapping'] * n_made / frame_ms:.4f}")
+    print(f"phase 4: {len(log)} local BA solves for {sum(gathered)} windows "
+          f"with a problem ({len(gathered)} windows): LM iterations "
+          f"{[b['lm_iters'] for b in log]}, CG iterations "
+          f"{[b['cg_iters'] for b in log]}, cameras "
+          f"{[len(b['window']) for b in log]}, cost0 -> cost "
+          + ", ".join(f"{b['cost0']:.1f} -> {b['cost']:.1f}" for b in log))
+    print("phase 4: K1 launches by Q x K: " + ", ".join(
+        f"{q}x{k} {n}" for (q, k), n in sorted(mix.items())))
+    for q, k in mix.keys() - k1_ms_at.keys():
+        a, b = words(q), words(k)
+        k1_ms_at[(q, k)] = _time_ms(torch, lambda: hamming.hamming_matrix(a, b))
+    backend = {s_: n for s_, n in mix.items()
+               if s_ not in K1_MIX_SHAPES}
+    for name, sel in (("all", mix), ("backend shapes", backend)):
+        dev_ms = sum(n * k1_ms_at[s_] for s_, n in sel.items())
+        bound = sum(n * _k1_bound(*s_)[0] for s_, n in sel.items())
+        print(f"phase 4: K1 {name}: {sum(sel.values())} launches, device ms "
+              f"(launches x device time at each shape) {dev_ms:.6f}, bound "
+              f"{bound:.6f}")
+    if not all(s_ == OK for s_ in states[1:]):
+        _fail(f"phase 4 tracking states {states}")
+    if not np.isfinite(est).all() or ate > LBA_ATE_BOUND_M:
+        _fail(f"phase 4 ATE {ate} m exceeds the bound {LBA_ATE_BOUND_M} m")
+    for key, ref in REF_LBA_MAP.items():
+        if abs(stats[key] - ref) > 0.25 * ref:
+            _fail(f"phase 4 live {key} {stats[key]} not within 25% of "
+                  f"JAX's {ref}")
+    if len(log) != sum(gathered) or not log:
+        _fail(f"phase 4: {len(log)} solves for {sum(gathered)} problems")
+    for b in log:
+        if not (np.isfinite(b["cost"]) and b["cost"] <= b["cost0"]):
+            _fail(f"phase 4 local BA diverged: {b}")
+    if launches["hamming"] < 2 * (N_FRAMES - 1) or not backend:
+        _fail(f"K1 launched {launches['hamming']} times in phase 4, "
+              f"{sum(backend.values())} at the backend's shapes")
+    if launches["cc_labels"] < N_FRAMES:
+        _fail(f"K2 launched {launches['cc_labels']} times in phase 4")
     return launches
 
 
@@ -331,7 +498,8 @@ def main() -> int:
     k1_cases = [(f"{q}x{k}", words(q), words(k)) for q, k in K1_MIX_SHAPES]
     k1_cases += [(f"{q}x{k}", words(q), words(k)) for q, k in
                  ((512, 1024), (160, 512), (1, 1), (15, 7), (17, 9),
-                  (63, 65), (129, 257), (1000, 999), (4097, 1023))]
+                  (63, 65), (129, 257), (1000, 999), (4097, 1023))
+                 + K1_BACKEND_SHAPES + ((777, 3072),)]
     k1_cases += [("zeros_vs_ones", words(300, 0), words(257, 0xFFFFFFFF)),
                  ("ones_vs_ones", words(65, 0xFFFFFFFF),
                   words(130, 0xFFFFFFFF)),
@@ -353,6 +521,16 @@ def main() -> int:
         k1_ms_at[(a.shape[0], b.shape[0])] = ms = _time_ms(
             torch, lambda: hamming.hamming_matrix(a, b))
         print(f"phase 1: K1 at {name} (a phase-2 shape): kernel {ms:.6f} ms")
+    for q, k in K1_BACKEND_SHAPES:
+        a, b = words(q), words(k)
+        k1_ms_at[(q, k)] = ms = _time_ms(
+            torch, lambda: hamming.hamming_matrix(a, b))
+        print(f"phase 1: K1 at {q}x{k} (a phase-4 shape): kernel {ms:.6f} ms, "
+              f"{ms * 1e6 / (q * k):.4f} ns per output (bound "
+              f"{_k1_bound(q, k)[0]:.6f} ms)")
+    q, k = K1_MIX_SHAPES[-1]
+    print(f"phase 1: K1 at {q}x{k} (phase 2's smallest): "
+          f"{k1_ms_at[(q, k)] * 1e6 / (q * k):.4f} ns per output")
     a, b = k1_cases[0][1], k1_cases[0][2]
     q, k = a.shape[0], b.shape[0]
     k1_ms = k1_ms_at[(q, k)]
@@ -382,7 +560,7 @@ def main() -> int:
         lib_ms[name] = _time_ms(torch, fn)
     k1_lib = min(gemms, key=lib_ms.get)
     k1_lib_ms = lib_ms[k1_lib]
-    k1_bound, k1_by = _bound_ms((q + k) * 32 + q * k * 4, q * k * 24)
+    k1_bound, k1_by = _k1_bound(q, k)
     print(f"phase 1: K1 at {q}x{k}: kernel {k1_ms:.6f} ms, plain "
           f"{k1_plain_ms:.4f} ms, bound {k1_bound:.6f} ms ({k1_by}); library "
           "calls, each equal to K1: " + ", ".join(
@@ -504,8 +682,8 @@ def main() -> int:
             lambda: hamming.hamming_matrix(a2, b2),
         "K2": lambda: cc_labels.cc_min_labels(init_r, conn_r),
         "K3": lambda: stereo.disparity_wta(cl0, cr0)})
-    for label, o in ops.items():
-        if len(o) != 1:
+    for label, segs in ops.items():
+        if any(len(o) != 1 for o in segs):
             _fail(f"one call of {label} did not run exactly one device kernel")
 
     # -- phase 2: slice 1's main path (RGB-D tracking) ---------------------
@@ -542,8 +720,7 @@ def main() -> int:
         a, b = words(q), words(k)
         k1_ms_at[(q, k)] = _time_ms(torch, lambda: hamming.hamming_matrix(a, b))
     k1_sum = sum(n * k1_ms_at[s] for s, n in mix.items())
-    k1_sum_bound = sum(n * _bound_ms((q + k) * 32 + q * k * 4, q * k * 24)[0]
-                       for (q, k), n in mix.items())
+    k1_sum_bound = sum(n * _k1_bound(q, k)[0] for (q, k), n in mix.items())
     print(f"phase 2: K1 device ms per {N_FRAMES} frames (launches x device "
           f"time at each shape): {k1_sum:.6f} (bound {k1_sum_bound:.6f})")
     if not all(s == OK for s in states[1:]):
@@ -556,6 +733,7 @@ def main() -> int:
         _fail(f"ATE {ate} m exceeds the bound {ATE_BOUND_M} m")
 
     launches3 = _phase3(torch, cam, scene)
+    launches4 = _phase4(torch, cam, scene, k1_ms_at, words)
 
     kernels = [
         {"name": "hamming_matrix", "route": "cuda",
@@ -563,13 +741,15 @@ def main() -> int:
          "replaces": "plvs_tpu/ops/hamming.py:84",
          "launches": launches["hamming"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": k1_lib_ms, "library": k1_lib},
+         "bound_by": k1_by, "library_ms": k1_lib_ms, "library": k1_lib,
+         "launches_phase4": launches4["hamming"]},
         {"name": "cc_min_labels", "route": "cuda",
          "source": "plvs_tpu_torch/csrc/cc_labels.cu",
          "replaces": "plvs_tpu/ops/cc_labels.py:95",
          "launches": launches["cc_labels"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None, "library": None},
+         "bound_by": k2_by, "library_ms": None, "library": None,
+         "launches_phase4": launches4["cc_labels"]},
         {"name": "disparity_wta", "route": "cuda",
          "source": "plvs_tpu_torch/csrc/stereo_wta.cu",
          "replaces": "plvs_tpu/ops/stereo.py:161",

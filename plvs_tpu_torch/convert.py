@@ -3,19 +3,23 @@
 The port learns no weights; its state is the camera, the ORB pattern and
 angle weights and the LBD pairs (regenerated from the same seeds in
 ``features/orb.py`` and ``features/lines.py``), the map, and the dense
-volume. The functions here rebuild the camera, the map and the TSDF volume
-from plain numpy data, so state built by plvs_tpu can be carried on by
-plvs_tpu_torch (the tests track one frame against an identical map, and
-integrate and mesh an identical volume, in both packages).
+volume. The functions here rebuild the camera, the map, a bundle-adjustment
+problem and the TSDF volume from plain numpy data, so state built by
+plvs_tpu can be carried on by plvs_tpu_torch (the tests track one frame
+against an identical map, run one keyframe backend pass and one bundle
+adjustment on identical inputs, and integrate and mesh an identical volume,
+in both packages).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .dense.tsdf import TSDFVolume
 from .geometry import cameras
 from .slam.map_store import MapStore
+from .solvers import ba
 
 
 def camera_from_numpy(kind, params, width, height, bf) -> cameras.Camera:
@@ -25,10 +29,11 @@ def camera_from_numpy(kind, params, width, height, bf) -> cameras.Camera:
 
 
 def map_store_from_numpy(arrays: dict) -> MapStore:
-    """A port MapStore from the JAX MapStore's SoA columns and counters
-    (``{name: value}`` for the attributes of the same names, e.g.
-    ``vars(jax_store)``); capacities follow the column shapes, and columns
-    the port does not keep are ignored."""
+    """A port MapStore from the JAX MapStore's SoA columns, counters (the
+    uid counter among them) and keyframe tombstones (``{name: value}`` for
+    the attributes of the same names, e.g. ``vars(jax_store)``); capacities
+    follow the column shapes, and columns the port does not keep are
+    ignored."""
     st = MapStore(max_kf=arrays["kf_R"].shape[0],
                   max_pts=arrays["pt_xyz"].shape[0],
                   max_obs=arrays["obs_kf"].shape[0],
@@ -43,7 +48,25 @@ def map_store_from_numpy(arrays: dict) -> MapStore:
         elif isinstance(cur, int) and not isinstance(cur, bool):
             setattr(st, name, int(val))
     st.uid_slot = {int(u): int(k) for k, u in enumerate(st.kf_uid) if u >= 0}
+    st.kf_tombstone = {
+        int(uid): (int(parent),) + tuple(
+            None if a is None else np.array(a, np.float32, copy=True)
+            for a in rest)
+        for uid, (parent, *rest) in arrays.get("kf_tombstone", {}).items()}
     return st
+
+
+def ba_problem_from_numpy(arrays: dict, device="cuda") -> ba.BAProblem:
+    """A port BAProblem from the JAX BAProblem's fields as numpy
+    (``{name: value}``, e.g. ``{f: np.asarray(getattr(p, f)) for f in
+    p._fields}``): index columns become int64, the rest keep their dtype."""
+    def put(name):
+        a = np.asarray(arrays[name])
+        if name in ("obs_cam", "obs_pt", "lobs_cam", "lobs_line"):
+            a = a.astype(np.int64)
+        return torch.as_tensor(np.array(a, copy=True), device=device)
+
+    return ba.BAProblem(*(put(f) for f in ba.BAProblem._fields))
 
 
 def tsdf_volume_from_numpy(cam: cameras.Camera, arrays: dict,

@@ -38,14 +38,12 @@ def hamming_pairs(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
 
 
 def _masked_best2(dist: torch.Tensor, valid: torch.Tensor):
-    """Best and second-best distance + best index along axis 1."""
+    """Best and second-best distance + best index along the last axis
+    (any leading batch axes)."""
     d = torch.where(valid, dist, INF)
-    best_idx = torch.argmin(d, dim=1)
-    rows = torch.arange(d.shape[0], device=d.device)
-    best = d[rows, best_idx]
-    d2 = d.clone()
-    d2[rows, best_idx] = INF
-    second = d2.amin(dim=1)
+    best_idx = torch.argmin(d, dim=-1)
+    best = d.gather(-1, best_idx[..., None])[..., 0]
+    second = d.scatter(-1, best_idx[..., None], INF).amin(dim=-1)
     return best, second, best_idx
 
 
@@ -69,16 +67,25 @@ def match_nn_ratio(desc_q, desc_k, mask_q, mask_k, max_dist: int = TH_LOW,
                    ratio: float = 0.75, cand_mask=None, mutual: bool = True):
     """Nearest-neighbour matching with Lowe ratio + optional mutual check.
     Returns (match_idx [Q] int64 (-1 = none), match_dist [Q])."""
-    dist = hamming(desc_q, desc_k)
-    valid = mask_q[:, None] & mask_k[None, :]
+    return match_nn_ratio_dist(hamming(desc_q, desc_k), mask_q, mask_k,
+                               max_dist, ratio, cand_mask, mutual)
+
+
+def match_nn_ratio_dist(dist, mask_q, mask_k, max_dist: int = TH_LOW,
+                        ratio: float = 0.75, cand_mask=None,
+                        mutual: bool = True):
+    """:func:`match_nn_ratio` on a given [..., Q, K] distance matrix (any
+    leading batch axes; masks [..., Q] and [..., K])."""
+    valid = mask_q[..., :, None] & mask_k[..., None, :]
     if cand_mask is not None:
         valid = valid & cand_mask
     best, second, idx = _masked_best2(dist, valid)
     ok = (best <= max_dist) & (best.float() <= ratio * second.float())
     if mutual:
-        _, _, idxT = _masked_best2(dist.T, valid.T)
-        ok = ok & (idxT[idx] == torch.arange(desc_q.shape[0],
-                                             device=idx.device))
+        _, _, idxT = _masked_best2(dist.transpose(-1, -2),
+                                   valid.transpose(-1, -2))
+        ok = ok & (idxT.gather(-1, idx) == torch.arange(
+            dist.shape[-2], device=idx.device))
     return torch.where(ok, idx, -1), best
 
 
@@ -90,17 +97,31 @@ def search_by_projection(proj_uv, proj_valid, map_desc, map_octave, kp_xy,
     """Guided search: match projected map features to frame keypoints inside
     a pixel window with compatible octaves. ``radius`` is a scalar or [Q].
     Returns (match_idx [Q] (-1 = none), match_dist [Q])."""
-    d2 = ((proj_uv[:, None, :] - kp_xy[None, :, :]) ** 2).sum(-1)
-    r = torch.as_tensor(radius, dtype=torch.float32, device=proj_uv.device)
-    r = r.expand(proj_uv.shape[:1])
-    window = d2 <= (r[:, None] ** 2)
-    oct_ok = (kp_octave[None, :] - map_octave[:, None]).abs() <= octave_tol
-    cand = window & oct_ok & proj_valid[:, None] & kp_mask[None, :]
+    return search_by_projection_dist(
+        hamming(map_desc, kp_desc), proj_uv, proj_valid, map_octave, kp_xy,
+        kp_octave, kp_mask, radius, max_dist, ratio, octave_tol, kp_angle,
+        map_angle, check_rotation)
 
-    dist = hamming(map_desc, kp_desc)
+
+def search_by_projection_dist(dist, proj_uv, proj_valid, map_octave, kp_xy,
+                              kp_octave, kp_mask, radius,
+                              max_dist: int = TH_HIGH, ratio: float = 0.9,
+                              octave_tol: int = 1, kp_angle=None,
+                              map_angle=None, check_rotation: bool = False):
+    """:func:`search_by_projection` on a given [..., Q, K] descriptor
+    distance matrix (any leading batch axes on every per-query and
+    per-keypoint argument)."""
+    d2 = ((proj_uv[..., :, None, :] - kp_xy[..., None, :, :]) ** 2).sum(-1)
+    r = torch.as_tensor(radius, dtype=torch.float32, device=proj_uv.device)
+    r = r.expand(proj_uv.shape[:-1])
+    window = d2 <= (r[..., None] ** 2)
+    oct_ok = (kp_octave[..., None, :]
+              - map_octave[..., :, None]).abs() <= octave_tol
+    cand = (window & oct_ok & proj_valid[..., :, None]
+            & kp_mask[..., None, :])
     best, second, idx = _masked_best2(dist, cand)
     ok = (best <= max_dist) & (best.float() <= ratio * second.float())
-    ok = ok & _unique_target(idx, best, ok, kp_xy.shape[0])
+    ok = ok & _unique_target(idx, best, ok, kp_xy.shape[-2])
     if check_rotation and kp_angle is not None and map_angle is not None:
         ok = rotation_consistency(map_angle - kp_angle[idx], ok)
     return torch.where(ok, idx, -1), best
@@ -108,8 +129,15 @@ def search_by_projection(proj_uv, proj_valid, map_desc, map_octave, kp_xy,
 
 def _unique_target(idx, dist, ok, n_targets: int):
     """Among queries matched to the same target keep the smallest distance,
-    ties to the first query."""
+    ties to the first query (per batch row when idx has leading axes)."""
     dev = idx.device
+    shape = idx.shape
+    if idx.dim() > 1:
+        # disjoint target ranges per batch row; queries keep their order
+        off = torch.arange(idx[..., 0].numel(), device=dev) * n_targets
+        idx = (idx + off.reshape(shape[:-1] + (1,))).reshape(-1)
+        dist, ok = dist.reshape(-1), ok.reshape(-1)
+        n_targets = n_targets * off.numel()
     d = torch.where(ok, dist, INF)
     best_per_tgt = torch.full((n_targets,), INF, dtype=d.dtype, device=dev)
     best_per_tgt.scatter_reduce_(0, idx, d, reduce="amin")
@@ -119,4 +147,4 @@ def _unique_target(idx, dist, ok, n_targets: int):
     qq = torch.where(is_best & ok, q, big)
     first_q = torch.full((n_targets,), big, dtype=q.dtype, device=dev)
     first_q.scatter_reduce_(0, idx, qq, reduce="amin")
-    return ok & is_best & (first_q[idx] == q)
+    return (ok & is_best & (first_q[idx] == q)).reshape(shape)

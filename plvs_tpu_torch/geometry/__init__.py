@@ -1,3 +1,3 @@
-"""Lie groups and camera models (torch)."""
+"""Lie groups, camera models and triangulation (torch)."""
 
-from . import cameras, lie  # noqa: F401
+from . import cameras, lie, triangulation  # noqa: F401

@@ -1,4 +1,5 @@
-"""SLAM front end: frames, map store, tracker and the System facade."""
+"""SLAM: frames, map store, tracker, local mapping and the System facade."""
 
+from .local_mapping import LocalMapper  # noqa: F401
 from .map_store import MapStore  # noqa: F401
 from .system import System, SystemConfig  # noqa: F401

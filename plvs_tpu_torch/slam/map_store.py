@@ -1,15 +1,17 @@
 """Host-side map store: fixed-capacity numpy SoA arrays for keyframes,
 landmarks and observations.
 
-Counterpart of the parts of plvs_tpu/slam/map_store.py that tracking
-touches: allocation (with capacity growth), point and line observations,
-the covisibility query (the numpy path; the port does not use the JAX
-package's native host engine), ``points_in_kfs`` / ``lines_in_kfs``, the
-keyframe uid layer the trajectory export resolves through, and the store
-lock. Descriptor columns stay ``np.uint32`` as in the JAX package; the
-tracker views them as int32 when it uploads them. Landmark maintenance
-(``_distinctive_rows``) and removal/culling belong to the keyframe-backend
-slice.
+Counterpart of plvs_tpu/slam/map_store.py for the ported slices:
+allocation (with capacity growth), point and line observations, the
+covisibility query (the numpy path; the port does not use the JAX
+package's native host engine — both order neighbours by a stable sort of
+their weights), ``points_in_kfs`` / ``lines_in_kfs``, the keyframe uid
+layer and the tombstones of culled keyframes that the trajectory export
+resolves through, landmark and keyframe removal and merging, landmark
+maintenance, and the store lock. Descriptor columns stay ``np.uint32`` as
+in the JAX package; the tracker views them as int32 when it uploads them.
+The multi-map atlas operations (``create_map``, ``merge_map_into``, ...)
+come with loop closing and map merging (ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -18,6 +20,37 @@ import dataclasses
 import threading
 
 import numpy as np
+import torch
+
+from ..ops import hamming as hamming_ops
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of int32 words (as uint32), through a byte table."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    pop = hamming_ops._POP8.to(x.device)
+    return sum(pop[(x >> s) & 0xFF] for s in (0, 8, 16, 24))
+
+
+def _distinctive_rows(desc: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """[P, M, 8] int32 descriptor words + [P, M] validity -> [P] index of the
+    row with the least median Hamming distance to the other valid rows
+    (self-distance excluded; the first such row on ties, as jnp.argmin).
+    A popcount-and-sort vote in plain PyTorch: the JAX package computes it
+    with jnp, outside any Pallas kernel."""
+    d = _popcount32(desc[:, :, None, :] ^ desc[:, None, :, :]).sum(
+        -1).to(torch.int32)
+    M = desc.shape[1]
+    eye = torch.eye(M, dtype=torch.bool, device=desc.device)[None]
+    valid = mask[:, :, None] & mask[:, None, :] & ~eye
+    BIG = 4096
+    d = torch.where(valid, d, BIG)
+    d_sorted = torch.sort(d, dim=-1).values
+    cnt = valid.sum(-1)
+    mid = torch.clamp(torch.div(cnt - 1, 2, rounding_mode="floor"), 0, M - 1)
+    med = d_sorted.gather(-1, mid[..., None])[..., 0]
+    med = torch.where(mask & (cnt > 0), med, BIG)
+    return torch.argmin(med, dim=-1)
 
 
 @dataclasses.dataclass
@@ -35,6 +68,8 @@ class MapStore:
         self.kf_R = np.zeros((K, 3, 3), np.float32)
         self.kf_t = np.zeros((K, 3), np.float32)
         self.kf_mask = np.zeros((K,), bool)
+        # frozen keyframes (a loaded map's): never culled, fixed in every BA
+        self.kf_fixed = np.zeros((K,), bool)
         self.kf_timestamp = np.zeros((K,), np.float64)
         self.kf_frame_id = np.zeros((K,), np.int64)
         self.kf_map = np.zeros((K,), np.int64)
@@ -43,6 +78,10 @@ class MapStore:
         self.kf_uid = np.full((K,), -1, np.int64)
         self._next_kf_uid = 0
         self.uid_slot: dict[int, int] = {}
+        # culled keyframes: uid -> (parent_uid, R_cp, t_cp, R_abs, t_abs),
+        # the pose relative to the strongest surviving covisible anchor;
+        # parent_uid < 0 means no anchor (the absolute pose is final)
+        self.kf_tombstone: dict = {}
         self.kf_kp_xy = np.zeros((K, N, 2), np.float32)
         self.kf_kp_uvr = np.full((K, N, 3), -1.0, np.float32)
         self.kf_kp_desc = np.zeros((K, N, 8), np.uint32)
@@ -108,7 +147,8 @@ class MapStore:
 
     def _grow_kfs(self):
         new = self.max_kf * 2
-        for name in ("kf_R", "kf_t", "kf_mask", "kf_timestamp", "kf_frame_id",
+        for name in ("kf_R", "kf_t", "kf_mask", "kf_fixed", "kf_timestamp",
+                     "kf_frame_id",
                      "kf_map", "kf_kp_xy", "kf_kp_desc", "kf_kp_octave",
                      "kf_kp_angle", "kf_kp_mask", "kf_kl_sp", "kf_kl_ep",
                      "kf_kl_desc", "kf_kl_mask", "kf_kl_depth"):
@@ -155,12 +195,29 @@ class MapStore:
         return k
 
     def resolve_kf_pose(self, uid: int):
-        """Current world-to-camera pose of keyframe ``uid`` (None when it is
-        gone; keyframe culling and its tombstones come with the backend)."""
-        slot = self.uid_slot.get(uid)
-        if slot is not None and self.kf_mask[slot]:
-            return self.kf_R[slot].copy(), self.kf_t[slot].copy()
+        """Current world-to-camera pose of keyframe ``uid``, composing
+        through the tombstones of culled keyframes; None when unresolvable."""
+        R_acc = np.eye(3, dtype=np.float32)
+        t_acc = np.zeros(3, np.float32)
+        for _ in range(4096):  # bounded tombstone chain
+            slot = self.uid_slot.get(uid)
+            if slot is not None and self.kf_mask[slot]:
+                return ((R_acc @ self.kf_R[slot]).astype(np.float32),
+                        (R_acc @ self.kf_t[slot] + t_acc).astype(np.float32))
+            tomb = self.kf_tombstone.get(uid)
+            if tomb is None:
+                return None
+            parent, R_cp, t_cp, R_abs, t_abs = tomb
+            if parent < 0:
+                return ((R_acc @ R_abs).astype(np.float32),
+                        (R_acc @ t_abs + t_acc).astype(np.float32))
+            t_acc = (R_acc @ t_cp + t_acc).astype(np.float32)
+            R_acc = (R_acc @ R_cp).astype(np.float32)
+            uid = parent
         return None
+
+    def kfs_of_map(self, map_id: int) -> np.ndarray:
+        return np.nonzero(self.kf_mask & (self.kf_map == map_id))[0]
 
     def alloc_pts(self, n: int) -> np.ndarray:
         free = np.nonzero(~self.pt_mask[: self._n_pt])[0][:n]
@@ -245,6 +302,122 @@ class MapStore:
         self.lobs_mask[n:] = False
         self._lobs_top = n
 
+    # -- removal and merging ------------------------------------------------
+
+    def remove_lines(self, line_ids: np.ndarray):
+        if len(line_ids) == 0:
+            return
+        self.ln_mask[line_ids] = False
+        top = self._lobs_top
+        sel = np.isin(self.lobs_line[:top], line_ids) & self.lobs_mask[:top]
+        self.kf_kl_line[self.lobs_kf[:top][sel], self.lobs_kl[:top][sel]] = -1
+        self.lobs_mask[:top][sel] = False
+        self.ln_n_obs[line_ids] = 0
+        self.version += 1
+
+    def remove_points(self, pt_ids: np.ndarray):
+        if len(pt_ids) == 0:
+            return
+        self.pt_mask[pt_ids] = False
+        top = self._obs_top
+        sel = np.isin(self.obs_pt[:top], pt_ids) & self.obs_mask[:top]
+        self.kf_kp_pt[self.obs_kf[:top][sel], self.obs_kp[:top][sel]] = -1
+        self.obs_mask[:top][sel] = False
+        self.pt_n_obs[pt_ids] = 0
+        self.version += 1
+
+    def replace_point(self, loser: int, winner: int):
+        """Merge landmark ``loser`` into ``winner``: observations move over
+        unless the winner is already observed in that keyframe. A Python
+        loop over the loser's observations, as in the JAX package: its
+        order decides which observation survives."""
+        if loser == winner:
+            return
+        top = self._obs_top
+        lrows = np.nonzero((self.obs_pt[:top] == loser)
+                           & self.obs_mask[:top])[0]
+        wkfs = set(self.obs_kf[:top][(self.obs_pt[:top] == winner)
+                                     & self.obs_mask[:top]].tolist())
+        for r in lrows:
+            kf, kp = self.obs_kf[r], self.obs_kp[r]
+            if int(kf) in wkfs:
+                self.obs_mask[r] = False
+                self.kf_kp_pt[kf, kp] = -1
+            else:
+                self.obs_pt[r] = winner
+                self.kf_kp_pt[kf, kp] = winner
+                self.pt_n_obs[winner] += 1
+                wkfs.add(int(kf))
+        self.pt_mask[loser] = False
+        self.pt_n_obs[loser] = 0
+        self.pt_visible[winner] += self.pt_visible[loser]
+        self.pt_found[winner] += self.pt_found[loser]
+        self.version += 1
+
+    def replace_line(self, loser: int, winner: int):
+        """Merge line landmark ``loser`` into ``winner`` (as
+        :meth:`replace_point`)."""
+        if loser == winner:
+            return
+        top = self._lobs_top
+        lrows = np.nonzero((self.lobs_line[:top] == loser)
+                           & self.lobs_mask[:top])[0]
+        wkfs = set(self.lobs_kf[:top][(self.lobs_line[:top] == winner)
+                                      & self.lobs_mask[:top]].tolist())
+        for r in lrows:
+            kf, kl = self.lobs_kf[r], self.lobs_kl[r]
+            if int(kf) in wkfs:
+                self.lobs_mask[r] = False
+                self.kf_kl_line[kf, kl] = -1
+            else:
+                self.lobs_line[r] = winner
+                self.kf_kl_line[kf, kl] = winner
+                self.ln_n_obs[winner] += 1
+                wkfs.add(int(kf))
+        self.ln_mask[loser] = False
+        self.ln_n_obs[loser] = 0
+        self.ln_visible[winner] += self.ln_visible[loser]
+        self.ln_found[winner] += self.ln_found[loser]
+        self.version += 1
+
+    def remove_keyframe(self, kf: int):
+        """Cull a keyframe: leave a tombstone (its pose relative to the
+        strongest surviving covisible anchor, else to the first other
+        keyframe of its map) and drop its point and line observations."""
+        uid = int(self.kf_uid[kf])
+        if uid >= 0:
+            covis, _ = self.covisibility(kf, min_weight=1)
+            anchor = next((int(c) for c in covis if self.kf_mask[c]), None)
+            if anchor is None:
+                others = np.nonzero(self.kf_mask
+                                    & (self.kf_map == self.kf_map[kf]))[0]
+                others = others[others != kf]
+                anchor = int(others[0]) if len(others) else None
+            R_c, t_c = self.kf_R[kf].copy(), self.kf_t[kf].copy()
+            if anchor is not None and self.kf_uid[anchor] >= 0:
+                R_p, t_p = self.kf_R[anchor], self.kf_t[anchor]
+                R_cp = (R_c @ R_p.T).astype(np.float32)
+                t_cp = (t_c - R_cp @ t_p).astype(np.float32)
+                self.kf_tombstone[uid] = (int(self.kf_uid[anchor]),
+                                          R_cp, t_cp, R_c, t_c)
+            else:
+                self.kf_tombstone[uid] = (-1, None, None, R_c, t_c)
+            self.uid_slot.pop(uid, None)
+            self.kf_uid[kf] = -1
+        self.kf_mask[kf] = False
+        top = self._obs_top
+        sel = (self.obs_kf[:top] == kf) & self.obs_mask[:top]
+        pts = self.obs_pt[:top][sel]
+        self.obs_mask[:top][sel] = False
+        np.add.at(self.pt_n_obs, pts, -1)
+        self.kf_kp_pt[kf] = -1
+        ltop = self._lobs_top
+        lsel = (self.lobs_kf[:ltop] == kf) & self.lobs_mask[:ltop]
+        lns = self.lobs_line[:ltop][lsel]
+        self.lobs_mask[:ltop][lsel] = False
+        np.add.at(self.ln_n_obs, lns, -1)
+        self.kf_kl_line[kf] = -1
+
     # -- derived structures -------------------------------------------------
 
     def live_obs(self):
@@ -278,6 +451,89 @@ class MapStore:
     def lines_in_kfs(self, kf_ids: np.ndarray) -> np.ndarray:
         okf, oln, _ = self.live_line_obs()
         return np.unique(oln[np.isin(okf, kf_ids)])
+
+    # -- landmark maintenance ------------------------------------------------
+
+    def update_point_maintenance(self, pt_ids: np.ndarray, scale: float = 1.2,
+                                 n_levels: int = 8, max_obs: int = 12,
+                                 device="cuda"):
+        """Distinctive-descriptor vote + normal / scale-range update for the
+        given landmarks (dispatch, then apply at once)."""
+        ctx = self.dispatch_point_maintenance(pt_ids, scale, n_levels, max_obs,
+                                              device)
+        if ctx is not None:
+            self.apply_point_maintenance(ctx, ctx["out"].cpu().numpy())
+
+    def apply_point_maintenance(self, ctx, fetched):
+        """Store the voted distinctive descriptors (host half)."""
+        P = ctx["P"]
+        uniq = ctx["uniq"]
+        best = np.asarray(fetched)[:P]
+        self.pt_desc[uniq] = ctx["desc"][np.arange(P), best]
+        self.pt_angle[uniq] = ctx["angs"][np.arange(P), best]
+        self.version += 1
+
+    def dispatch_point_maintenance(self, pt_ids: np.ndarray,
+                                   scale: float = 1.2, n_levels: int = 8,
+                                   max_obs: int = 12, device="cuda"):
+        """Normal / scale-range update (applied at once, numpy) and the
+        distinctive-descriptor vote over each landmark's first ``max_obs``
+        observations (dispatched on ``device``; the returned ctx's "out" is
+        the [P] winning row, applied by :meth:`apply_point_maintenance`)."""
+        pt_ids = np.asarray(pt_ids)
+        pt_ids = pt_ids[self.pt_mask[pt_ids]]
+        if len(pt_ids) == 0:
+            return None
+        okf, opt, okp = self.live_obs()
+        sel = np.isin(opt, pt_ids)
+        o_kf, o_pt, o_kp = okf[sel], opt[sel], okp[sel]
+        if len(o_pt) == 0:
+            return None
+        order = np.argsort(o_pt, kind="stable")
+        o_kf, o_pt, o_kp = o_kf[order], o_pt[order], o_kp[order]
+        uniq, start, counts = np.unique(o_pt, return_index=True,
+                                        return_counts=True)
+        slot = np.arange(len(o_pt)) - np.repeat(start, counts)
+        keep = slot < max_obs
+        P = len(uniq)
+        row = np.searchsorted(uniq, o_pt)
+
+        # --- normal & scale range (numpy) ---------------------------------
+        Cw_all = -np.einsum("kji,kj->ki", self.kf_R[o_kf], self.kf_t[o_kf])
+        dirs = self.pt_xyz[o_pt] - Cw_all
+        dn = np.linalg.norm(dirs, axis=-1, keepdims=True)
+        dirs = dirs / np.maximum(dn, 1e-9)
+        nsum = np.zeros((P, 3), np.float32)
+        np.add.at(nsum, row, dirs.astype(np.float32))
+        nn = np.linalg.norm(nsum, axis=-1, keepdims=True)
+        self.pt_normal[uniq] = nsum / np.maximum(nn, 1e-9)
+        ref = self.pt_ref_kf[uniq]
+        is_ref = o_kf == ref[row]
+        # distance and octave at the reference observation (else the first)
+        dist_ref = np.zeros((P,), np.float32)
+        octv_ref = np.zeros((P,), np.int32)
+        dist_ref[row[is_ref]] = dn[is_ref, 0]
+        octv_ref[row[is_ref]] = self.kf_kp_octave[o_kf[is_ref], o_kp[is_ref]]
+        no_ref = dist_ref == 0
+        dist_ref[no_ref] = dn[start, 0][no_ref]
+        octv_ref[no_ref] = self.kf_kp_octave[o_kf[start], o_kp[start]][no_ref]
+        max_d = dist_ref * (scale ** octv_ref)
+        self.pt_max_dist[uniq] = max_d
+        self.pt_min_dist[uniq] = max_d / (scale ** (n_levels - 1))
+        self.version += 1
+
+        # --- distinctive descriptor (device vote) -------------------------
+        desc = np.zeros((P, max_obs, 8), np.uint32)
+        dmask = np.zeros((P, max_obs), bool)
+        angs = np.zeros((P, max_obs), np.float32)
+        desc[row[keep], slot[keep]] = self.kf_kp_desc[o_kf[keep], o_kp[keep]]
+        angs[row[keep], slot[keep]] = self.kf_kp_angle[o_kf[keep], o_kp[keep]]
+        dmask[row[keep], slot[keep]] = True
+        out = _distinctive_rows(
+            torch.from_numpy(desc.view(np.int32)).to(device),
+            torch.from_numpy(dmask).to(device))
+        return {"out": out, "P": P, "uniq": uniq, "desc": desc,
+                "angs": angs}
 
     @property
     def num_keyframes(self):

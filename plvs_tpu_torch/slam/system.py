@@ -5,12 +5,14 @@ Counterpart of plvs_tpu/slam/system.py for the ported slices:
 ``SystemConfig`` keeps every field and default of the JAX package, and the
 settings whose machinery is not ported yet raise ``NotImplementedError``
 naming the ROADMAP.md item that ports them — none of them gets a stand-in.
-With the keyframe backend off, new map points and line landmarks still come
-from depth at every keyframe, so the tracker works against a growing map.
-With ``dense_mapping`` on, each keyframe's dense stage (depth — from stereo
-through kernel K3 on the stereo path —, filter, TSDF integration and the
-incremental mesh) runs inline, as the JAX package's synchronous backend
-runs it.
+New map points and line landmarks come from depth at every keyframe. After
+each keyframe the synchronous backend runs inline, as the JAX package's
+does without loop closing: with ``local_ba`` the local mapper (culling,
+line triangulation, fuse, landmark maintenance, the windowed local BA,
+keyframe culling), then with ``dense_mapping`` the dense stage (depth —
+from stereo through kernel K3 on the stereo path —, filter, TSDF
+integration and the incremental mesh) at the keyframe's adjusted pose; the
+tracker then continues from that stored pose.
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ from ..dense.mapping import DenseMapper
 from ..geometry import cameras as cam_mod
 from ..geometry import lie
 from ..ops import resolve_device
+from ..utils.profiling import Stopwatch
 from . import frame as frame_mod
 from . import tracking
+from .local_mapping import LocalMapper
 from .map_store import MapStore
 from .tracking import OK, Tracker
 
@@ -92,7 +96,6 @@ class SystemConfig:
 
 # settings outside this slice -> (value that is in the slice, ROADMAP item)
 _NOT_IN_SLICE = {
-    "local_ba": (False, "queue 1 item 1, keyframe backend"),
     "loop_closing": (False, "queue 1 item 3, place recognition and loop "
                             "closing"),
     "vocabulary_path": (None, "queue 1 item 3, place recognition and loop "
@@ -108,8 +111,8 @@ _NOT_IN_SLICE = {
 
 
 class System:
-    """RGB-D / rectified-stereo SLAM front end on one device (synchronous,
-    keyframe backend off, optional dense mapping)."""
+    """RGB-D / rectified-stereo SLAM on one device (synchronous, optional
+    keyframe backend and dense mapping)."""
 
     def __init__(self, cam: cam_mod.Camera, config: SystemConfig | None = None,
                  device: str | torch.device = "cuda", cam2=None, T_c1_c2=None):
@@ -146,15 +149,38 @@ class System:
         tr.max_keylines = c.max_lines
         tr.depth_decimation = c.depth_upload_decimation
         tr.fixed_shapes = c.backend_fixed_shapes
+        # the keyframe database (place recognition) is the loop-closing
+        # slice's; culls notify it once it exists
+        self.kfdb = None
+        self.local_mapper = LocalMapper(
+            cam, self.store, scale=c.scale, n_levels=c.n_levels,
+            use_lines=c.use_lines, kfdb=self.kfdb,
+            fixed_shapes=c.backend_fixed_shapes, device=self.device)
         self.dense_mapper = None
         if c.dense_mapping:
             self.dense_mapper = DenseMapper(
                 cam, voxel_size=c.dense_voxel_size,
                 mesh_every=c.dense_mesh_every, device=self.device)
+        # per-stage timing (host clock; no synchronisation unless the
+        # caller installs a stopwatch with a sync device)
+        self.set_stopwatch(Stopwatch())
         self.trajectory = []  # (timestamp, R, t) world-to-camera
         # (timestamp, ref_kf_uid, R_rel, t_rel): T_frame_w = T_rel * T_ref_w,
         # so the export follows any later change of the keyframe poses
         self._traj_rel = []
+
+    def set_stopwatch(self, stopwatch: Stopwatch):
+        """Time the system's stages, the local mapper's and the dense
+        mapper's through ``stopwatch``."""
+        self.stopwatch = stopwatch
+        self.local_mapper.stopwatch = stopwatch
+        if self.dense_mapper is not None:
+            self.dense_mapper.stopwatch = stopwatch
+
+    def time_stats(self) -> dict:
+        """Per-stage timing statistics (mean / std / median / total ms and
+        count per stage over the run)."""
+        return self.stopwatch.stats()
 
     def _build_frames(self, gray: np.ndarray, depth: np.ndarray):
         """Full-resolution quantized upload + separate frame build (the
@@ -182,10 +208,14 @@ class System:
         if self.tracker.state == OK:
             planes = _pack_rgbd(gray, depth, self.config.depth_upload_decimation)
             if planes is not None:
-                res = self.tracker.process_frame_packed(*planes, timestamp)
+                with self.stopwatch.scope("track"):
+                    res = self.tracker.process_frame_packed(*planes,
+                                                            timestamp)
         if res is None:
-            fr, fl = self._build_frames(gray, depth)
-            res = self.tracker.process_frame(fr, timestamp, fl)
+            with self.stopwatch.scope("frame_build"):
+                fr, fl = self._build_frames(gray, depth)
+            with self.stopwatch.scope("track"):
+                res = self.tracker.process_frame(fr, timestamp, fl)
         payload = ("rgbd", gray, depth) if self.dense_mapper else None
         return self._post_track(res, timestamp, payload)
 
@@ -225,21 +255,30 @@ class System:
                 self._traj_rel.append((timestamp, -1, res.R.copy(),
                                        res.t.copy()))
         if res.is_keyframe and res.kf_id >= 0:
-            if self.dense_mapper is not None and dense_payload is not None:
-                kind, a, b = dense_payload
-                self.dense_mapper.insert_keyframe(
-                    kind, a, b, st.kf_R[res.kf_id], st.kf_t[res.kf_id])
-            # the backend would adjust the keyframe here; keep the tracker
-            # pose consistent with the stored one, as the JAX package does
+            self._backend_keyframe(res.kf_id, dense_payload)
+            # keep the tracker's pose consistent with the adjusted keyframe
             self.tracker.R = st.kf_R[res.kf_id].copy()
             self.tracker.t = st.kf_t[res.kf_id].copy()
         self.trajectory.append((timestamp, res.R.copy(), res.t.copy()))
         return res.state, res.R, res.t
 
+    def _backend_keyframe(self, kf_id: int, dense_payload=None):
+        """The synchronous per-keyframe backend: the local mapper, then the
+        dense stage at the keyframe's pose after bundle adjustment."""
+        if self.config.local_ba:
+            with self.stopwatch.scope("local_mapping"):
+                self.local_mapper.process_keyframe(kf_id)
+        if self.dense_mapper is not None and dense_payload is not None:
+            kind, a, b = dense_payload
+            st = self.store
+            with self.stopwatch.scope("dense_mapping"):
+                self.dense_mapper.insert_keyframe(kind, a, b, st.kf_R[kf_id],
+                                                  st.kf_t[kf_id])
+
     def retro_trajectory(self):
         """(ts, R_cw, t_cw) per frame, reconstructed through the current
-        keyframe poses; frames whose keyframe is gone keep their tracked
-        pose."""
+        keyframe poses (through the tombstones of culled keyframes); frames
+        without a reference keyframe keep their tracked pose."""
         out = []
         st = self.store
         with st.lock:

@@ -1,3 +1,3 @@
-"""Robust kernels and the pose-only solver (torch)."""
+"""Robust kernels, the pose-only solver and bundle adjustment (torch)."""
 
-from . import pose_opt, robust  # noqa: F401
+from . import ba, pose_opt, robust  # noqa: F401

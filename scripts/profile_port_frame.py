@@ -1,22 +1,26 @@
 """Where the time of the PyTorch port's per-frame program goes.
 
-    python3 scripts/profile_port_frame.py [--sensor rgbd|stereo] [--frames 40] [--window 5]
+    python3 scripts/profile_port_frame.py [--sensor rgbd|stereo] [--frames 40] [--window 5] [--local-ba]
 
 Runs a configuration that ``chip_smoke.py`` drives over bench.py's
 structured-wall scene on one CUDA card — ``--sensor rgbd`` (phase 2):
 ``System.track_rgbd`` of ``plvs_tpu_torch`` at 640x480, 1024 ORB features,
 8 levels, 160 keylines, keyframe backend off; ``--sensor stereo`` (phase
 3): ``System.track_stereo`` on rectified pairs at the same widths with
-dense TSDF mapping and per-keyframe incremental meshing — and prints:
+dense TSDF mapping and per-keyframe incremental meshing; ``--local-ba``
+adds the synchronous keyframe backend (phase 4: ``local_ba=True`` with
+bench.py's fixed BA shapes) — and prints:
 
 * the per-frame wall time (host clock, synchronised), p50 and p90;
 * the host time of each stage per frame, each stage synchronised at its
   ends: ORB frame build, line build, the tracking program (motion-model
   search + local-map search + pose solves), the pose solves within it,
   the dense stage (stereo: with its disparity and TSDF integration, the
-  rest being the mesh), and the host bookkeeping that remains; plus pose
-  solves and Gauss-Newton iterations per frame and dense-stage ms per
-  keyframe;
+  rest being the mesh), the keyframe backend, and the host bookkeeping
+  that remains; plus pose solves and Gauss-Newton iterations per frame,
+  dense-stage ms per keyframe, and with ``--local-ba`` the backend's stage
+  ms per keyframe (culling, line triangulation, fuse, maintenance, local
+  BA, keyframe culling; synchronised scopes);
 * over a window of steady frames traced by ``torch.profiler``: device busy
   time per frame (sum of the durations of the device ops: kernels, copies
   and memsets), the device's idle share of the wall time, device ops per
@@ -66,6 +70,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--window", type=int, default=5,
                     help="steady frames traced by torch.profiler")
+    ap.add_argument("--local-ba", action="store_true",
+                    help="run the synchronous keyframe backend")
     args = ap.parse_args()
 
     import torch
@@ -80,6 +86,7 @@ def main() -> int:
     from plvs_tpu_torch.io import synthetic
     from plvs_tpu_torch.slam import System, SystemConfig, frame, tracking
     from plvs_tpu_torch.solvers import pose_opt
+    from plvs_tpu_torch.utils.profiling import Stopwatch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -91,10 +98,11 @@ def main() -> int:
     stereo = args.sensor == "stereo"
     cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
                        max_pts=65536, use_lines=True, max_lines=160,
-                       sensor=args.sensor, local_ba=False, loop_closing=False,
-                       dense_mapping=stereo, dense_voxel_size=0.02,
-                       dense_mesh_every=1, pipelined=False,
-                       depth_upload_decimation=2)
+                       sensor=args.sensor, local_ba=args.local_ba,
+                       loop_closing=False, dense_mapping=stereo,
+                       dense_voxel_size=0.02, dense_mesh_every=1,
+                       pipelined=False, depth_upload_decimation=2,
+                       backend_fixed_shapes=args.local_ba)
     tex = synthetic.make_structured_texture(
         2048, rng=np.random.default_rng(7))
     scene = synthetic.SyntheticRGBD(cam, wall_z=3.0, texture=tex,
@@ -139,6 +147,8 @@ def main() -> int:
         setattr(mod, attr, _stage_timer(torch, totals, counts, name,
                                         getattr(mod, attr)))
     system2 = System(cam, cfg, device="cuda")
+    watch = Stopwatch(sync_device=torch.device("cuda"))
+    system2.set_stopwatch(watch)
     t_all = 0.0
     for ts, a, b in frames:
         t0 = time.perf_counter()
@@ -151,10 +161,18 @@ def main() -> int:
     stage_ms = {k: totals[k] / n * 1e3 for k in
                 ("orb_frame", "line_frame", "tracking_program",
                  "pose_solves", "dense_stage")}
+    backend_s = sum(watch.samples.get("local_mapping", []))
+    stage_ms["keyframe_backend"] = backend_s / n * 1e3
     stage_ms["host_rest"] = (t_all / n * 1e3 - stage_ms["orb_frame"]
                              - stage_ms["line_frame"]
                              - stage_ms["tracking_program"]
-                             - stage_ms["dense_stage"])
+                             - stage_ms["dense_stage"]
+                             - stage_ms["keyframe_backend"])
+    n_made = system2.store._next_kf_uid
+    backend_ms_per_kf = {
+        k: sum(v) / n_made * 1e3 for k, v in sorted(watch.samples.items())
+        if k.startswith("lm.") or k == "local_mapping"}
+    ba_log = system2.local_mapper.ba_log
     per_frame = {"pose_solves": counts["pose_solves"] / n,
                  "gn_iterations": counts["gn_iterations"] / n}
     n_kf = max(counts["dense_stage"], 1)
@@ -193,6 +211,12 @@ def main() -> int:
     if stereo:
         print(f"dense stage ms per keyframe ({counts['dense_stage']} "
               "keyframes): " + json.dumps(dense_ms_per_kf))
+    if args.local_ba:
+        print(f"keyframe backend ms per keyframe ({n_made} keyframes, "
+              f"{len(ba_log)} local BA solves, LM iterations "
+              f"{[b['lm_iters'] for b in ba_log]}, CG iterations "
+              f"{[b['cg_iters'] for b in ba_log]}): "
+              + json.dumps(backend_ms_per_kf))
     print(f"profiled window of {nw} frames: wall {win_s * 1e3 / nw} ms/frame "
           f"(profiler on), {np.mean(wall[-nw:])} ms/frame (profiler off), "
           f"device busy {busy_us / 1e3 / nw} ms/frame, "
@@ -215,12 +239,15 @@ def main() -> int:
     idle_profiled = 1.0 - busy_us / 1e6 / win_s
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "card": smi.stdout.strip(),
-        "sensor": args.sensor, "frames": n,
+        "sensor": args.sensor, "local_ba": args.local_ba, "frames": n,
         "wall_ms_p50": float(np.percentile(steady, 50)),
         "wall_ms_p90": float(np.percentile(steady, 90)),
         "stage_ms": stage_ms, **per_frame,
         **({"dense_ms_per_keyframe": dense_ms_per_kf,
             "keyframes": counts["dense_stage"]} if stereo else {}),
+        **({"backend_ms_per_keyframe": backend_ms_per_kf,
+            "keyframes_made": n_made, "local_ba_solves": len(ba_log)}
+           if args.local_ba else {}),
         "device_busy_ms_per_frame": busy_us / 1e3 / nw,
         "device_idle_share": idle,
         "device_idle_share_profiled": idle_profiled,

@@ -1,12 +1,16 @@
 """ATE of the JAX package on the PyTorch port's chip-smoke scene.
 
-Runs ``plvs_tpu``'s synchronous RGB-D tracker with points and lines and the
-keyframe backend off (the configuration ``chip_smoke.py`` drives through
-``plvs_tpu_torch``) over bench.py's structured-wall scene, and prints one
-JSON line with the aligned and raw ATE-RMSE against ground truth. The
-port's chip smoke holds its own ATE to max(1.5 x this, this + 1 cm).
+Runs ``plvs_tpu``'s synchronous RGB-D tracker with points and lines over
+bench.py's structured-wall scene and prints one JSON line with the aligned
+and raw ATE-RMSE against ground truth. Without ``--local-ba`` the keyframe
+backend is off (``chip_smoke.py`` phase 2's configuration); with it the
+synchronous keyframe backend runs with bench.py's fixed BA shapes
+(``local_ba=True, backend_fixed_shapes=True``, phase 4's configuration),
+and the line also gives the live keyframes, points and lines and the
+keyframes culled. The port's chip smoke holds its own ATE to
+max(1.5 x this, this + 1 cm).
 
-    JAX_PLATFORMS=cpu python scripts/reference_ate_rgbd_lines.py [--frames 120]
+    JAX_PLATFORMS=cpu python scripts/reference_ate_rgbd_lines.py [--frames 120] [--local-ba]
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=120)
+    ap.add_argument("--local-ba", action="store_true",
+                    help="run the synchronous keyframe backend")
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -40,9 +46,10 @@ def main():
                           bf=40.0)
     cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
                        max_pts=65536, use_lines=True, max_lines=160,
-                       local_ba=False, loop_closing=False,
+                       local_ba=args.local_ba, loop_closing=False,
                        dense_mapping=False, pipelined=False,
-                       depth_upload_decimation=2)
+                       depth_upload_decimation=2,
+                       backend_fixed_shapes=args.local_ba)
     system = System(cam, cfg)
     tex = synthetic.make_structured_texture(
         2048, rng=np.random.default_rng(7))
@@ -57,7 +64,7 @@ def main():
     wall = time.perf_counter() - t0
     est = system.trajectory_tum()[:, 1:4]
     gt = np.stack(gt)
-    print(json.dumps({
+    out = {
         "device": "cpu (jax " + jax.__version__ + ")",
         "frames": args.frames,
         "all_ok_after_first": all(s == OK for s in states[1:]),
@@ -65,7 +72,13 @@ def main():
         "ate_rmse_raw_m": evaluation.ate_rmse(est, gt, align=False),
         "map": system.map_statistics(),
         "wall_s": wall,
-    }))
+    }
+    if args.local_ba:
+        st = system.store
+        # every keyframe ever made has a uid; the culled ones left tombstones
+        out["local_ba"] = {"keyframes_made": int(st._next_kf_uid),
+                           "keyframes_culled": len(st.kf_tombstone)}
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

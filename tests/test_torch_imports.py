@@ -12,7 +12,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted(
     [p for p in (ROOT / "plvs_tpu_torch").rglob("*.py")]
     + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_port_frame.py",
-       ROOT / "scripts" / "probe_k1_design.py"])
+       ROOT / "scripts" / "probe_k1_design.py",
+       ROOT / "scripts" / "count_ba_ops.py"])
 FORBIDDEN = ("jax", "jaxlib", "plvs_tpu")
 
 

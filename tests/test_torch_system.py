@@ -125,7 +125,7 @@ def test_rgbd_dense_map_agrees(runs):
 
 def test_unsupported_settings_raise():
     cam = tcam.pinhole(*CAM_ARGS, **CAM_KW)
-    for kw in (dict(local_ba=True), dict(loop_closing=True),
+    for kw in (dict(loop_closing=True),
                dict(rectify=True), dict(dense_segmentation=True),
                dict(pipelined=True), dict(async_mapping=True),
                dict(use_imu=True), dict(sensor="mono")):
