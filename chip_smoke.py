@@ -23,8 +23,12 @@ K3 call adds. Phase 2 drives slice 1's path —
 over bench.py's structured-wall scene, with every launch counter set to 0
 just before and read just after, checks that every frame is tracked and
 the trajectory's ATE is within the bound below, and prints K1's launches
-by shape and their device time (launches x device time at each shape)
-beside its bound. Phase 3 drives slice 2's path the same way —
+by shape and their device time beside its bound. A phase's K1 device
+time is measured over that phase's own run: each launch the run makes is
+bracketed by a CUDA-event pair queued behind a short spin kernel, so the
+pair holds the kernel and no host gap, and the pairs are summed (phase 1
+prints what a bracket around no kernel reads). Phase 3 drives slice 2's
+path the same way —
 ``System.track_stereo`` on rectified pairs of the same scene (the right
 image one baseline to the right) with dense TSDF mapping and per-keyframe
 incremental meshing — and checks tracking, ATE, one K3 launch per
@@ -38,7 +42,21 @@ package's run of the same configuration, and one finite, non-increasing
 local BA per keyframe whose window gave a problem; it prints the backend's
 stage times per keyframe (synchronised scopes), the LM and CG iterations
 per solve, and K1's launches by shape with their device time beside the
-bound (phase 1 holds K1 exact at the backend's shapes too).
+bound (phase 1 holds K1 exact at the backend's shapes too). Phase 5
+drives slice 6's loop-closure path — ``System.track_rgbd`` with local BA,
+loop closing and dense mapping, points only, over the four-wall room orbit
+(1.375 laps, 132 frames, depth noise) at 640x480 / 1024 features / 8
+levels — and holds it to the JAX package's run of the same configuration:
+every frame tracked, a loop closed against one of the first keyframes at
+about JAX's keyframe with a falling pose-graph cost, the global BA finite
+and non-increasing, the ATE, the live map, and the dense map after the
+rebuild; it prints the loop stages' ms (synchronised scopes) per keyframe
+and per closure. Phase 6 drives the relocalization path — phase 2's scene
+and flags with a blackout of blank frames — and holds the state sequence
+(RECENTLY_LOST, then OK) to JAX's and the final camera centre to ground
+truth. After each of phases 2-6, K1 is held exact against its plain
+version at every shape that phase launched and no earlier phase had
+checked.
 
 It prints one ``{"kernels": [...]}`` line and ends with one
 ``{"ok": true, "device": {...}}`` line. Any failed phase exits non-zero; so
@@ -48,6 +66,7 @@ file. Imports nothing of jax or plvs_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -89,6 +108,34 @@ REF_LBA_ATE_M = 0.0038166583429642535
 LBA_ATE_BOUND_M = max(1.5 * REF_LBA_ATE_M, REF_LBA_ATE_M + 0.01)
 REF_LBA_MAP = {"keyframes": 11, "points": 1612, "lines": 150}
 
+# JAX package's figures on phase 5's loop-closure run (CPU run of
+# JAX_PLATFORMS=cpu python scripts/reference_loop_room.py, 132 frames, 154
+# s: all OK; one loop, keyframe 29 against candidate 0, 198 inliers,
+# pose-graph cost 3.620 -> 0.01038; global BA cost 101997 -> 10263; 34
+# live keyframes, 8016 points; after the rebuild 616668 occupied voxels,
+# 1588332 mesh triangles). The port is held to: every frame after the
+# first OK; >= 1 loop, the first against a keyframe among 0-2 at a keyframe
+# within +-3 of JAX's; a falling pose-graph cost; a finite, non-increasing
+# global BA; the ATE bound below; live keyframes / points and the dense
+# counts after the first rebuild within +-25%.
+REF_LOOP_KF = 29
+REF_LOOP_ATE_M = 0.0567200505056132
+LOOP_ATE_BOUND_M = max(1.5 * REF_LOOP_ATE_M, REF_LOOP_ATE_M + 0.01)
+REF_LOOP_MAP = {"keyframes": 34, "points": 8016}
+REF_LOOP_DENSE = {"occupied": 616668, "triangles": 1588332}
+N_LOOP_FRAMES = 132
+
+# JAX package's states on phase 6's relocalization run (CPU run of
+# JAX_PLATFORMS=cpu python scripts/reference_reloc.py --blackout 100 106,
+# 120 frames, 135 s: OK, then RECENTLY_LOST on frames 100-105, OK from
+# frame 106 on; final camera centre 0.0026 m from ground truth). The port
+# is held to the same first lost frame and state within +-1 frame, OK from
+# the same frame on, and a final centre within 0.1 m of ground truth.
+RELOC_BLACKOUT = (100, 106)
+REF_RELOC_FIRST_LOST = 100
+REF_RELOC_LOST_STATE = 5       # RECENTLY_LOST
+REF_RELOC_OK_FROM = 106
+
 N_FRAMES = 120
 # K1's (Q, K) shapes on phase 2's path
 K1_MIX_SHAPES = ((4096, 1024), (2048, 1024), (1024, 1024), (512, 160),
@@ -105,6 +152,11 @@ SPIN_CYCLES = 200_000_000
 # shortest of _device_ops_per_call's spin markers (~25 us at the H100's
 # clocks); call i's marker is 4^i times as long
 MARK_CYCLES = 50_000
+# spin queued before each bracketed K1 launch of a phase's run (~1 ms at
+# the H100's clocks): far longer than the host takes from the spin's
+# launch to K1's (each phase prints that host time beside the spin's), so
+# the start event fires with the kernel already queued
+BRACKET_CYCLES = 2_000_000
 
 
 def _fail(msg: str) -> None:
@@ -129,6 +181,121 @@ def _time_ms(torch, fn, reps: int = 100, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class _K1Brackets:
+    """Device time of the K1 launches that a phase's run makes. Inside
+    ``run()``, each launch is bracketed by a CUDA-event pair queued behind
+    a spin kernel, so the pair holds the kernel (and the pair's own
+    events), not the host's launch work, as long as the host time from
+    the spin's launch to K1's (``host_s``, kept per launch) is shorter than
+    the spin. Launches outside a run (the checks against the plain
+    version, the timing loops) go unbracketed."""
+
+    def __init__(self, torch, hamming):
+        self.torch, self.on = torch, False
+        self.pairs, self.host_s = [], []
+        launch = hamming._lib().plvs_hamming
+        brackets = self
+
+        class Bracketed:
+            @staticmethod
+            def plvs_hamming(d1, d2, out, q, k, stream):
+                if not brackets.on:
+                    return launch(d1, d2, out, q, k, stream)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                # a first record creates the events before the spin starts
+                start.record()
+                end.record()
+                t0 = time.perf_counter()
+                torch.cuda._sleep(BRACKET_CYCLES)
+                start.record()
+                err = launch(d1, d2, out, q, k, stream)
+                brackets.host_s.append(time.perf_counter() - t0)
+                end.record()
+                brackets.pairs.append(((q, k), start, end))
+                return err
+
+        hamming._lib = Bracketed
+        self.spin_ms = self._spin_ms()
+
+    def _spin_ms(self, reps: int = 5) -> float:
+        """Median device time of one bracket spin."""
+        times = []
+        for _ in range(reps):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.torch.cuda._sleep(BRACKET_CYCLES)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    @contextlib.contextmanager
+    def run(self):
+        self.pairs.clear()
+        self.host_s.clear()
+        self.on = True
+        try:
+            yield
+        finally:
+            self.on = False
+
+    def ms_by_shape(self, idx=None) -> dict:
+        """{(Q, K): [device ms of each bracketed launch]} over the last run
+        (or over the launches at indices ``idx`` of it)."""
+        self.torch.cuda.synchronize()
+        pairs = self.pairs if idx is None else [self.pairs[i] for i in idx]
+        out = {}
+        for shape, start, end in pairs:
+            out.setdefault(shape, []).append(start.elapsed_time(end))
+        return out
+
+    def empty_ms(self, reps: int = 20) -> float:
+        """Median reading of a bracket around no kernel."""
+        times = []
+        for _ in range(reps):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            end.record()
+            self.torch.cuda._sleep(BRACKET_CYCLES)
+            start.record()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    def host_summary(self) -> str:
+        """The last run's host time from a spin's launch to K1's."""
+        if not self.host_s:
+            return "no bracketed launch"
+        ms = np.asarray(self.host_s) * 1e3
+        return (f"host time from the spin's launch to K1's median "
+                f"{np.median(ms):.6f} ms, max {ms.max():.6f} ms, longer than "
+                f"the spin ({self.spin_ms:.6f} ms) in "
+                f"{int((ms >= self.spin_ms).sum())} of {len(ms)} launches")
+
+
+def _k1_report(phase: int, label: str, by_shape: dict, k1_ms_at: dict,
+               brackets=None):
+    """Print K1's bracketed device ms over a phase's run by shape, beside
+    phase 1's back-to-back time at that shape and the bound (and, given
+    ``brackets``, the run's host time inside the spins); returns the run's
+    (device ms, bound ms)."""
+    dev = sum(sum(v) for v in by_shape.values())
+    bound = sum(len(v) * _k1_bound(*s_)[0] for s_, v in by_shape.items())
+    print(f"phase {phase}: K1 {label}: "
+          f"{sum(len(v) for v in by_shape.values())} launches, device ms "
+          f"{dev:.6f} (bracketed launches), bound {bound:.6f}; by Q x K "
+          "(launches, median bracket ms, back-to-back ms): " + ", ".join(
+              f"{q}x{k} ({len(v)}, {np.median(v):.6f}, "
+              f"{k1_ms_at[(q, k)]:.6f})"
+              for (q, k), v in sorted(by_shape.items()))
+          + (f"; {brackets.host_summary()}" if brackets else ""))
+    return dev, bound
 
 
 def _time_ms_per_call(torch, fn, reps: int = 50, warmup: int = 5) -> float:
@@ -251,9 +418,10 @@ def _scene(cam, synthetic):
                                    tex_scale=420.0)
 
 
-def _phase3(torch, cam, scene) -> dict:
+def _phase3(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
     """Slice 2's main path: rectified stereo tracking with dense TSDF
-    mapping and per-keyframe incremental meshing; returns the launches."""
+    mapping and per-keyframe incremental meshing; returns the launches and
+    K1's device ms over the run."""
     from plvs_tpu_torch.io import evaluation
     from plvs_tpu_torch.ops import cc_labels, hamming, stereo
     from plvs_tpu_torch.slam import System, SystemConfig
@@ -273,14 +441,16 @@ def _phase3(torch, cam, scene) -> dict:
               for ts, g, _, R, t in scene.sequence(n_frames=N_FRAMES)]
     hamming.launches = cc_labels.launches = stereo.launches = 0
     states, ms = [], []
-    for ts, gl, gr, _, _ in frames:
-        t1 = time.perf_counter()
-        state, _, _ = system.track_stereo(gl, gr, ts)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t1) * 1e3)
-        states.append(int(state))
+    with brackets.run():
+        for ts, gl, gr, _, _ in frames:
+            t1 = time.perf_counter()
+            state, _, _ = system.track_stereo(gl, gr, ts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            states.append(int(state))
     launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
                 "stereo_wta": stereo.launches}
+    by_shape = brackets.ms_by_shape()
     est = system.trajectory_tum()[:, 1:4]
     gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
     ate = evaluation.ate_rmse(est, gt, align=True)
@@ -328,6 +498,10 @@ def _phase3(torch, cam, scene) -> dict:
             _fail(f"phase 3 {name} {got} not within 25% of JAX's {ref}")
     if med_dz > REF_MEDIAN_ABS_DZ_M + 0.02:
         _fail(f"phase 3 median |z - {WALL_Z}| {med_dz} m: the wall is off")
+    launches["k1_err"] = _hold_k1(torch, hamming, words, k1_ms_at, by_shape,
+                                  3)
+    launches["k1_device_ms"] = _k1_report(3, "over the run", by_shape,
+                                          k1_ms_at, brackets)[0]
     return launches
 
 
@@ -335,7 +509,7 @@ def _k1_bound(q: int, k: int):
     return _bound_ms((q + k) * 32 + q * k * 4, q * k * 24)
 
 
-def _phase4(torch, cam, scene, k1_ms_at: dict, words) -> dict:
+def _phase4(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
     """Slice 5's main path: RGB-D tracking with the synchronous keyframe
     backend; returns the launches."""
     from plvs_tpu_torch.io import evaluation
@@ -367,15 +541,17 @@ def _phase4(torch, cam, scene, k1_ms_at: dict, words) -> dict:
     hamming.launches = cc_labels.launches = stereo.launches = 0
     hamming.shapes.clear()
     states, ms = [], []
-    for ts, g, d, _, _ in frames:
-        t1 = time.perf_counter()
-        state, _, _ = system.track_rgbd(g, d, ts)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t1) * 1e3)
-        states.append(int(state))
+    with brackets.run():
+        for ts, g, d, _, _ in frames:
+            t1 = time.perf_counter()
+            state, _, _ = system.track_rgbd(g, d, ts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            states.append(int(state))
     launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
                 "stereo_wta": stereo.launches}
     mix = dict(hamming.shapes)
+    by_shape = brackets.ms_by_shape()
     est = system.trajectory_tum()[:, 1:4]
     gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
     ate = evaluation.ate_rmse(est, gt, align=True)
@@ -408,17 +584,13 @@ def _phase4(torch, cam, scene, k1_ms_at: dict, words) -> dict:
           + ", ".join(f"{b['cost0']:.1f} -> {b['cost']:.1f}" for b in log))
     print("phase 4: K1 launches by Q x K: " + ", ".join(
         f"{q}x{k} {n}" for (q, k), n in sorted(mix.items())))
-    for q, k in mix.keys() - k1_ms_at.keys():
-        a, b = words(q), words(k)
-        k1_ms_at[(q, k)] = _time_ms(torch, lambda: hamming.hamming_matrix(a, b))
+    launches["k1_err"] = _hold_k1(torch, hamming, words, k1_ms_at, mix, 4)
+    launches["k1_device_ms"] = _k1_report(4, "over the run", by_shape,
+                                          k1_ms_at, brackets)[0]
     backend = {s_: n for s_, n in mix.items()
                if s_ not in K1_MIX_SHAPES}
-    for name, sel in (("all", mix), ("backend shapes", backend)):
-        dev_ms = sum(n * k1_ms_at[s_] for s_, n in sel.items())
-        bound = sum(n * _k1_bound(*s_)[0] for s_, n in sel.items())
-        print(f"phase 4: K1 {name}: {sum(sel.values())} launches, device ms "
-              f"(launches x device time at each shape) {dev_ms:.6f}, bound "
-              f"{bound:.6f}")
+    _k1_report(4, "at the backend's shapes", {
+        s_: v for s_, v in by_shape.items() if s_ in backend}, k1_ms_at)
     if not all(s_ == OK for s_ in states[1:]):
         _fail(f"phase 4 tracking states {states}")
     if not np.isfinite(est).all() or ate > LBA_ATE_BOUND_M:
@@ -438,6 +610,243 @@ def _phase4(torch, cam, scene, k1_ms_at: dict, words) -> dict:
     if launches["cc_labels"] < N_FRAMES:
         _fail(f"K2 launched {launches['cc_labels']} times in phase 4")
     return launches
+
+
+def _hold_k1(torch, hamming, words, k1_ms_at: dict, shapes, phase: int):
+    """K1 against its plain version, and its device time, at each (Q, K)
+    of ``shapes`` not held yet (random words); returns the largest error."""
+    err = 0
+    for q, k in sorted(set(shapes) - k1_ms_at.keys()):
+        a, b = words(q), words(k)
+        got = hamming.hamming_matrix(a, b)
+        ref = hamming.hamming_plain(a, b)
+        torch.cuda.synchronize()
+        e = int((got - ref).abs().max()) if got.numel() else 0
+        err = max(err, e)
+        k1_ms_at[(q, k)] = ms = _time_ms(
+            torch, lambda: hamming.hamming_matrix(a, b))
+        print(f"phase {phase}: K1 at {q}x{k} (a phase-{phase} shape): "
+              f"max_abs_err {e}, kernel {ms:.6f} ms (bound "
+              f"{_k1_bound(q, k)[0]:.6f} ms)")
+        if e:
+            _fail(f"K1 disagrees with its plain version at {q}x{k}")
+    return err
+
+
+def _k1_inside(brackets, obj, name: str) -> list:
+    """Wrap method ``name`` of ``obj`` so the indices, in the run's
+    brackets, of the K1 launches made inside it accumulate in the returned
+    list."""
+    inside = []
+    fn = getattr(obj, name)
+
+    def counting(*a, **kw):
+        first = len(brackets.pairs)
+        try:
+            return fn(*a, **kw)
+        finally:
+            inside.extend(range(first, len(brackets.pairs)))
+
+    setattr(obj, name, counting)
+    return inside
+
+
+def _phase5(torch, cam, brackets, k1_ms_at: dict, words) -> dict:
+    """Slice 6's loop-closure path: RGB-D tracking with local BA, loop
+    closing and dense mapping over the room orbit; returns the launches,
+    K1's launches by shape and the largest K1 error at new shapes."""
+    from plvs_tpu_torch.dense import meshing
+    from plvs_tpu_torch.io import evaluation, synthetic
+    from plvs_tpu_torch.ops import cc_labels, hamming, stereo
+    from plvs_tpu_torch.slam import System, SystemConfig
+    from plvs_tpu_torch.slam.tracking import OK
+    from plvs_tpu_torch.utils.profiling import Stopwatch
+
+    cfg = SystemConfig(num_features=1024, n_levels=8, max_kf=128,
+                       max_pts=65536, use_lines=False, local_ba=True,
+                       loop_closing=True, dense_mapping=True,
+                       dense_voxel_size=0.02)
+    system = System(cam, cfg, device="cuda")
+    watch = Stopwatch(sync_device=torch.device("cuda"))
+    system.set_stopwatch(watch)
+    dm = system.dense_mapper
+    after_rebuild = []
+    lc_idx = _k1_inside(brackets, system.loop_closer, "process_keyframe")
+    room = synthetic.SyntheticRoom(cam, half=3.0, tex_size=2048, seed=3)
+    poses = synthetic.orbit_loop_trajectory(N_LOOP_FRAMES, radius=1.0,
+                                            laps=1.375)
+    frames = []
+    for i, (ts, g, d, R, t) in enumerate(room.sequence(poses)):
+        rng = np.random.default_rng(1000 + i)
+        d = d + rng.normal(0, 0.01, d.shape).astype(np.float32) * d ** 2
+        frames.append((ts, g, d, R, t))
+    hamming.launches = cc_labels.launches = stereo.launches = 0
+    hamming.shapes.clear()
+    states, ms = [], []
+    with brackets.run():
+        for ts, g, d, _, _ in frames:
+            t1 = time.perf_counter()
+            state, _, _ = system.track_rgbd(g, d, ts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            states.append(int(state))
+            # the dense map right after a frame that closed a loop (and so
+            # rebuilt it), counted outside the frame's timed scopes
+            if len(after_rebuild) < len(system.loops_closed):
+                _, faces = meshing.marching_tetrahedra(dm.volume)
+                after_rebuild.append({"occupied": len(dm.cloud()[0]),
+                                      "triangles": len(faces),
+                                      "keyframes": len(dm.keyframes)})
+    launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
+                "stereo_wta": stereo.launches}
+    mix = dict(hamming.shapes)
+    by_shape = brackets.ms_by_shape()
+    lc_by_shape = brackets.ms_by_shape(lc_idx)
+    n_rebuilds = len(watch.samples.get("dense.rebuild", []))
+    est = system.trajectory_tum()[:, 1:4]
+    gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
+    ate = evaluation.ate_rmse(est, gt, align=True)
+    stats = system.map_statistics()
+    n_made = system.store._next_kf_uid
+    loops = system.loops_closed
+    steady = np.asarray(ms[1:])
+    print(f"phase 5: {N_LOOP_FRAMES} frames 640x480 of the room orbit with "
+          f"local BA, loop closing and dense mapping, per-frame ms p50 "
+          f"{np.percentile(steady, 50):.2f} p90 "
+          f"{np.percentile(steady, 90):.2f} max {steady.max():.2f} (first "
+          f"frame {ms[0]:.1f}); map {stats} (JAX {REF_LOOP_MAP}); keyframes "
+          f"made {n_made}; ATE-RMSE {ate:.6f} m (JAX {REF_LOOP_ATE_M:.6f} m, "
+          f"bound {LOOP_ATE_BOUND_M:.6f} m); launches {launches}")
+    for kf, info in loops:
+        gba = info.get("global_ba") or {}
+        print(f"phase 5: loop at keyframe {kf} (JAX {REF_LOOP_KF}) against "
+              f"{info['candidate']}: {info['inliers']} inliers, "
+              f"{info['n_fused']} points fused, pose graph over "
+              f"{info['n_kf']} keyframes cost {info['cost0']:.6f} -> "
+              f"{info['cost']:.6f} ({info['lm_iters']} LM, "
+              f"{info['cg_iters']} CG iterations); global BA cost "
+              f"{gba.get('cost0', float('nan')):.3f} -> "
+              f"{gba.get('cost', float('nan')):.3f} "
+              f"({gba.get('lm_iters')} LM, {gba.get('cg_iters')} CG)")
+    per_kf = {k: sum(watch.samples.get(k, [])) * 1e3 / max(n_made, 1)
+              for k in ("lc.bow_add", "lc.detect", "lc.verify",
+                        "loop_closing", "local_mapping", "dense_mapping")}
+    print("phase 5: stage ms per keyframe (synchronised scopes, "
+          f"{n_made} keyframes): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per_kf.items()))
+    print("phase 5: stage ms per closure (synchronised scopes): "
+          + ", ".join(f"{k} {[round(v * 1e3, 2) for v in watch.samples.get(k, [])]}"
+                      for k in ("lc.correct", "global_ba", "dense.rebuild")))
+    print(f"phase 5: dense map after each rebuild {after_rebuild} (JAX "
+          f"{REF_LOOP_DENSE}); at the end {len(dm.cloud()[0])} occupied "
+          f"voxels")
+    print("phase 5: K1 launches by Q x K: " + ", ".join(
+        f"{q}x{k} {n}" for (q, k), n in sorted(mix.items())))
+    err = _hold_k1(torch, hamming, words, k1_ms_at, mix, 5)
+    dev_ms = _k1_report(5, "over the run", by_shape, k1_ms_at, brackets)[0]
+    _k1_report(5, "inside the loop closer", lc_by_shape, k1_ms_at)
+    if not all(s_ == OK for s_ in states[1:]):
+        _fail(f"phase 5 tracking states {states}")
+    if not loops:
+        _fail("phase 5 closed no loop")
+    kf, info = loops[0]
+    if info["candidate"] > 2 or abs(kf - REF_LOOP_KF) > 3:
+        _fail(f"phase 5 first loop at keyframe {kf} against "
+              f"{info['candidate']}; JAX closes {REF_LOOP_KF} against 0")
+    for kf, info in loops:
+        gba = info.get("global_ba")
+        if not info["cost"] < info["cost0"]:
+            _fail(f"phase 5 pose graph did not lower its cost: {info}")
+        if gba is None or not (np.isfinite(gba["cost"])
+                               and gba["cost"] <= gba["cost0"]):
+            _fail(f"phase 5 global BA diverged or did not run: {gba}")
+    if not np.isfinite(est).all() or ate > LOOP_ATE_BOUND_M:
+        _fail(f"phase 5 ATE {ate} m exceeds the bound {LOOP_ATE_BOUND_M} m")
+    for key, ref in REF_LOOP_MAP.items():
+        if abs(stats[key] - ref) > 0.25 * ref:
+            _fail(f"phase 5 live {key} {stats[key]} not within 25% of "
+                  f"JAX's {ref}")
+    if n_rebuilds != len(loops):
+        _fail(f"phase 5: {n_rebuilds} rebuilds for {len(loops)} loops")
+    for key, ref in REF_LOOP_DENSE.items():
+        got = after_rebuild[0][key]
+        if abs(got - ref) > 0.25 * ref:
+            _fail(f"phase 5 dense {key} after the rebuild {got} not within "
+                  f"25% of JAX's {ref}")
+    if launches["hamming"] < 2 * (N_LOOP_FRAMES - 1):
+        _fail(f"K1 launched {launches['hamming']} times in phase 5")
+    return {"launches": launches, "mix": mix, "k1_err": err,
+            "k1_device_ms": dev_ms}
+
+
+def _phase6(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
+    """The relocalization path: phase 2's run with a blackout; returns the
+    launches, K1's launches by shape and the largest K1 error at new
+    shapes."""
+    from plvs_tpu_torch.ops import cc_labels, hamming, stereo
+    from plvs_tpu_torch.slam import System, SystemConfig
+    from plvs_tpu_torch.slam.tracking import OK
+
+    cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
+                       max_pts=65536, use_lines=True, max_lines=160,
+                       local_ba=False, loop_closing=False,
+                       dense_mapping=False, pipelined=False,
+                       depth_upload_decimation=2)
+    system = System(cam, cfg, device="cuda")
+    reloc_idx = _k1_inside(brackets, system.tracker, "_relocalize")
+    frames = list(scene.sequence(n_frames=N_FRAMES))
+    a, b = RELOC_BLACKOUT
+    hamming.launches = cc_labels.launches = stereo.launches = 0
+    hamming.shapes.clear()
+    states, ms = [], []
+    with brackets.run():
+        for i, (ts, g, d, _, _) in enumerate(frames):
+            if a <= i < b:
+                g, d = np.zeros_like(g), np.zeros_like(d)
+            t1 = time.perf_counter()
+            state, _, _ = system.track_rgbd(g, d, ts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            states.append(int(state))
+    launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
+                "stereo_wta": stereo.launches}
+    mix = dict(hamming.shapes)
+    by_shape = brackets.ms_by_shape()
+    reloc_by_shape = brackets.ms_by_shape(reloc_idx)
+    _, R_end, t_end = system.trajectory[-1]
+    _, _, _, R_gt, t_gt = frames[-1]
+    c_err = float(np.linalg.norm(-R_end.T @ t_end + R_gt.T @ t_gt))
+    lost = [i for i, s_ in enumerate(states) if s_ != OK]
+    ok_from = next(i for i in range(len(states) + 1)
+                   if all(s_ == OK for s_ in states[i:]))
+    print(f"phase 6: {N_FRAMES} frames 640x480 with frames {a}-{b - 1} "
+          f"blank: states {states[a - 2:ok_from + 2]} from frame {a - 2}; "
+          f"not OK on frames {lost} (JAX: state {REF_RELOC_LOST_STATE} on "
+          f"{REF_RELOC_FIRST_LOST}-{REF_RELOC_OK_FROM - 1}), OK from "
+          f"{ok_from} (JAX {REF_RELOC_OK_FROM}); relocalizing frame "
+          f"{ms[ok_from]:.1f} ms, blank frames "
+          f"{np.median(ms[a:b]):.1f} ms median; final camera centre "
+          f"{c_err:.6f} m from ground truth; map {system.map_statistics()}; "
+          f"launches {launches}")
+    print("phase 6: K1 launches by Q x K: " + ", ".join(
+        f"{q}x{k} {n}" for (q, k), n in sorted(mix.items())))
+    err = _hold_k1(torch, hamming, words, k1_ms_at, mix, 6)
+    dev_ms = _k1_report(6, "over the run", by_shape, k1_ms_at, brackets)[0]
+    _k1_report(6, "inside relocalization", reloc_by_shape, k1_ms_at)
+    if not lost or abs(lost[0] - REF_RELOC_FIRST_LOST) > 1:
+        _fail(f"phase 6 lost on frames {lost}; JAX from "
+              f"{REF_RELOC_FIRST_LOST}")
+    if any(states[i] != REF_RELOC_LOST_STATE for i in lost):
+        _fail(f"phase 6 lost states {[states[i] for i in lost]}; JAX's are "
+              f"all {REF_RELOC_LOST_STATE}")
+    if ok_from != REF_RELOC_OK_FROM:
+        _fail(f"phase 6 OK from frame {ok_from}; JAX {REF_RELOC_OK_FROM}")
+    if c_err > 0.1:
+        _fail(f"phase 6 final camera centre {c_err} m from ground truth")
+    if launches["cc_labels"] < N_FRAMES - (b - a):
+        _fail(f"K2 launched {launches['cc_labels']} times in phase 6")
+    return {"launches": launches, "mix": mix, "k1_err": err,
+            "k1_device_ms": dev_ms}
 
 
 def main() -> int:
@@ -687,6 +1096,10 @@ def main() -> int:
             _fail(f"one call of {label} did not run exactly one device kernel")
 
     # -- phase 2: slice 1's main path (RGB-D tracking) ---------------------
+    brackets = _K1Brackets(torch, hamming)
+    print(f"phase 1: a K1 bracket around no kernel reads "
+          f"{brackets.empty_ms():.6f} ms; the spin before it lasts "
+          f"{brackets.spin_ms:.6f} ms")
     cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
                        max_pts=65536, use_lines=True, max_lines=160,
                        local_ba=False, loop_closing=False,
@@ -697,14 +1110,16 @@ def main() -> int:
     hamming.launches = cc_labels.launches = stereo.launches = 0
     hamming.shapes.clear()
     states, ms = [], []
-    for ts, g, d, _, _ in frames:
-        t1 = time.perf_counter()
-        state, _, _ = system.track_rgbd(g, d, ts)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t1) * 1e3)
-        states.append(int(state))
+    with brackets.run():
+        for ts, g, d, _, _ in frames:
+            t1 = time.perf_counter()
+            state, _, _ = system.track_rgbd(g, d, ts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            states.append(int(state))
     launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
                 "stereo_wta": stereo.launches}
+    by_shape = brackets.ms_by_shape()
     est = system.trajectory_tum()[:, 1:4]
     gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
     ate = evaluation.ate_rmse(est, gt, align=True)
@@ -716,13 +1131,9 @@ def main() -> int:
     mix = dict(hamming.shapes)
     print("phase 2: K1 launches by Q x K: " + ", ".join(
         f"{q}x{k} {n}" for (q, k), n in sorted(mix.items())))
-    for q, k in mix.keys() - k1_ms_at.keys():
-        a, b = words(q), words(k)
-        k1_ms_at[(q, k)] = _time_ms(torch, lambda: hamming.hamming_matrix(a, b))
-    k1_sum = sum(n * k1_ms_at[s] for s, n in mix.items())
-    k1_sum_bound = sum(n * _k1_bound(q, k)[0] for (q, k), n in mix.items())
-    print(f"phase 2: K1 device ms per {N_FRAMES} frames (launches x device "
-          f"time at each shape): {k1_sum:.6f} (bound {k1_sum_bound:.6f})")
+    k1_err = max(k1_err, _hold_k1(torch, hamming, words, k1_ms_at, mix, 2))
+    k1_sum = _k1_report(2, f"over the run ({N_FRAMES} frames)", by_shape,
+                        k1_ms_at, brackets)[0]
     if not all(s == OK for s in states[1:]):
         _fail(f"tracking states {states}")
     if launches["hamming"] < 2 * (N_FRAMES - 1):
@@ -732,8 +1143,13 @@ def main() -> int:
     if not np.isfinite(est).all() or ate > ATE_BOUND_M:
         _fail(f"ATE {ate} m exceeds the bound {ATE_BOUND_M} m")
 
-    launches3 = _phase3(torch, cam, scene)
-    launches4 = _phase4(torch, cam, scene, k1_ms_at, words)
+    launches3 = _phase3(torch, cam, scene, brackets, k1_ms_at, words)
+    launches4 = _phase4(torch, cam, scene, brackets, k1_ms_at, words)
+    run5 = _phase5(torch, cam, brackets, k1_ms_at, words)
+    run6 = _phase6(torch, cam, scene, brackets, k1_ms_at, words)
+    launches5, launches6 = run5["launches"], run6["launches"]
+    k1_err = max(k1_err, launches3["k1_err"], launches4["k1_err"],
+                 run5["k1_err"], run6["k1_err"])
 
     kernels = [
         {"name": "hamming_matrix", "route": "cuda",
@@ -742,20 +1158,34 @@ def main() -> int:
          "launches": launches["hamming"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": k1_lib_ms, "library": k1_lib,
-         "launches_phase4": launches4["hamming"]},
+         "launches_phase3": launches3["hamming"],
+         "launches_phase4": launches4["hamming"],
+         "launches_phase5": launches5["hamming"],
+         "launches_phase6": launches6["hamming"],
+         "device_ms_phase2": k1_sum,
+         "device_ms_phase3": launches3["k1_device_ms"],
+         "device_ms_phase4": launches4["k1_device_ms"],
+         "device_ms_phase5": run5["k1_device_ms"],
+         "device_ms_phase6": run6["k1_device_ms"]},
         {"name": "cc_min_labels", "route": "cuda",
          "source": "plvs_tpu_torch/csrc/cc_labels.cu",
          "replaces": "plvs_tpu/ops/cc_labels.py:95",
          "launches": launches["cc_labels"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None, "library": None,
-         "launches_phase4": launches4["cc_labels"]},
+         "launches_phase3": launches3["cc_labels"],
+         "launches_phase4": launches4["cc_labels"],
+         "launches_phase5": launches5["cc_labels"],
+         "launches_phase6": launches6["cc_labels"]},
         {"name": "disparity_wta", "route": "cuda",
          "source": "plvs_tpu_torch/csrc/stereo_wta.cu",
          "replaces": "plvs_tpu/ops/stereo.py:161",
          "launches": launches3["stereo_wta"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": None, "library": None},
+         "bound_by": k3_by, "library_ms": None, "library": None,
+         "launches_phase4": launches4["stereo_wta"],
+         "launches_phase5": launches5["stereo_wta"],
+         "launches_phase6": launches6["stereo_wta"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

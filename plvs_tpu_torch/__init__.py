@@ -1,7 +1,8 @@
 """plvs_tpu_torch — the PyTorch / CUDA port of plvs_tpu for NVIDIA Hopper.
 
 The package mirrors plvs_tpu's layout (geometry/, features/, ops/, solvers/,
-slam/, io/) so that each module's counterpart is easy to find. Plain tensor
+slam/, dense/, vocab/, io/) so that each module's counterpart is easy to
+find. Plain tensor
 code is PyTorch; every Pallas kernel of the JAX package on the ported path
 is a CUDA C++ kernel under ``csrc/`` (built with nvcc for sm_90a at first
 use, bound through ctypes — see ``ops/_build.py``), with a plain PyTorch

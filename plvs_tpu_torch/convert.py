@@ -2,13 +2,15 @@
 
 The port learns no weights; its state is the camera, the ORB pattern and
 angle weights and the LBD pairs (regenerated from the same seeds in
-``features/orb.py`` and ``features/lines.py``), the map, and the dense
-volume. The functions here rebuild the camera, the map, a bundle-adjustment
-problem and the TSDF volume from plain numpy data, so state built by
-plvs_tpu can be carried on by plvs_tpu_torch (the tests track one frame
-against an identical map, run one keyframe backend pass and one bundle
-adjustment on identical inputs, and integrate and mesh an identical volume,
-in both packages).
+``features/orb.py`` and ``features/lines.py``), the vocabulary, the map,
+the keyframe database and the dense volume. The functions here rebuild the
+camera, a vocabulary, the map, the database's per-keyframe word lists, a
+bundle-adjustment problem, a pose-graph problem and the TSDF volume from
+plain numpy data, so state built by plvs_tpu can be carried on by
+plvs_tpu_torch (the tests track one frame against an identical map, run one
+keyframe backend pass, one loop-closer pass, one bundle adjustment and one
+pose graph on identical inputs, and integrate and mesh an identical
+volume, in both packages).
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ import torch
 
 from .dense.tsdf import TSDFVolume
 from .geometry import cameras
+from .slam.keyframe_database import KeyFrameDatabase
 from .slam.map_store import MapStore
-from .solvers import ba
+from .solvers import ba, pose_graph
+from .vocab import bow
 
 
 def camera_from_numpy(kind, params, width, height, bf) -> cameras.Camera:
@@ -54,6 +58,53 @@ def map_store_from_numpy(arrays: dict) -> MapStore:
             for a in rest)
         for uid, (parent, *rest) in arrays.get("kf_tombstone", {}).items()}
     return st
+
+
+def vocabulary_from_numpy(arrays: dict):
+    """A port vocabulary from the JAX vocabulary's fields (``{name:
+    value}``, e.g. ``voc._asdict()``): a ``GeneralVocabulary`` when the
+    fields hold a children table, else a regular ``Vocabulary``."""
+    if "children" in arrays:
+        return bow.GeneralVocabulary(
+            int(arrays["k"]), int(arrays["depth"]),
+            np.array(arrays["nodes"], np.uint32),
+            np.array(arrays["children"], np.int32),
+            np.array(arrays["word_id"], np.int32),
+            np.array(arrays["word_weights"], np.float32),
+            int(arrays["n_words"]))
+    return bow.Vocabulary(
+        int(arrays["k"]), int(arrays["depth"]),
+        np.array(arrays["nodes"], np.uint32),
+        tuple(int(x) for x in arrays["level_offset"]),
+        np.array(arrays["word_weights"], np.float32), int(arrays["n_words"]))
+
+
+def keyframe_database_from_numpy(store: MapStore, voc, kf_words: dict,
+                                 device="cuda") -> KeyFrameDatabase:
+    """A port KeyFrameDatabase over ``store`` holding the JAX database's
+    per-keyframe sparse word lists (``{kf: (word ids, weights)}``, e.g. its
+    ``_kf_words``), indexed in the given order."""
+    db = KeyFrameDatabase(store, voc=voc, device=device)
+    for kf, (words, weights) in kf_words.items():
+        w = np.array(words, np.int32)
+        v = np.array(weights, np.float32)
+        db._kf_words[int(kf)] = (w, v)
+        db._index().add(int(kf), w, v)
+    return db
+
+
+def pose_graph_problem_from_numpy(arrays: dict,
+                                  device="cuda") -> pose_graph.PoseGraphProblem:
+    """A port PoseGraphProblem from the JAX problem's fields as numpy
+    (``{name: value}``): edge indices become int64."""
+    def put(name):
+        a = np.asarray(arrays[name])
+        if name in ("edge_i", "edge_j"):
+            a = a.astype(np.int64)
+        return torch.as_tensor(np.array(a, copy=True), device=device)
+
+    return pose_graph.PoseGraphProblem(
+        *(put(f) for f in pose_graph.PoseGraphProblem._fields))
 
 
 def ba_problem_from_numpy(arrays: dict, device="cuda") -> ba.BAProblem:

@@ -1,12 +1,14 @@
-"""Dense mapping orchestrator: per-keyframe depth, integration and meshing.
+"""Dense mapping orchestrator: per-keyframe depth, integration and meshing,
+and the rebuild after a loop closure.
 
 Counterpart of plvs_tpu/dense/mapping.py's ``DenseMapper`` for the
 synchronous path: per keyframe, stereo depth (kernel K3) or the RGB-D
 depth, the depth filter, TSDF integration and the budgeted incremental
-mesh, in the JAX package's order (``insert_stages``). The multi-resolution
-far field, unstable-voxel carving and segmentation raise
-``NotImplementedError``; the loop-closure ``rebuild`` (and the per-keyframe
-sensor store it re-integrates) comes with loop closing (ROADMAP.md queue 1).
+mesh, in the JAX package's order (``insert_stages``). Each keyframe's raw
+depth and color stay on the device (``DenseKeyFrame``), and ``rebuild``
+resets the volume and the mesher and re-integrates every stored keyframe
+at its corrected pose. The multi-resolution far field (the coarse volume),
+unstable-voxel carving and segmentation raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,15 @@ from . import processing
 from .meshing import IncrementalMesher, marching_tetrahedra
 from .stereo_depth import disparity, disparity_to_depth
 from .tsdf import TSDFVolume, to_host
+
+
+@dataclasses.dataclass
+class DenseKeyFrame:
+    """Stored sensor data of one keyframe (device tensors)."""
+
+    kf_id: int
+    depth: torch.Tensor   # [H, W] raw metric depth
+    color: torch.Tensor   # [H, W] gray or [H, W, 3], as integrated
 
 
 class _LazyFuture:
@@ -81,6 +92,7 @@ class DenseMapper:
                                  max_blocks=self.max_blocks,
                                  device=self.device)
         self.mesher = IncrementalMesher(self.volume)
+        self.keyframes: list[DenseKeyFrame] = []
         self.remesh_counts: list[int] = []
         self._n_inserted = 0
         # one-KF-lagged changed-block fetch (see insert_stages)
@@ -95,11 +107,12 @@ class DenseMapper:
         return bool(self.mesh_every
                     and self._n_inserted % self.mesh_every == 0)
 
-    def _insert_rgbd_core(self, color, depth, Rcw: np.ndarray,
+    def _insert_rgbd_core(self, kf_id: int, color, depth, Rcw: np.ndarray,
                           tcw: np.ndarray):
         """Filter + integrate. The depth is quantized to u16 millimetres
         (and a gray color plane to u8) before filtering, as the JAX package
-        uploads it; block allocation scans the raw depth."""
+        uploads it; block allocation scans the raw depth. The raw depth and
+        the integrated color are kept for :meth:`rebuild`."""
         raw = self.volume._put(depth)
         color = self.volume._put(color)
         alloc = to_host(raw)
@@ -108,12 +121,13 @@ class DenseMapper:
             color = torch.clamp(color, 0, 255).to(torch.uint8).to(
                 torch.float32)
         depth = processing.filter_depth(d16.to(torch.float32) * 1e-3)
+        self.keyframes.append(DenseKeyFrame(kf_id, raw, color))
         with self._scope("dense.integrate"):
             self.volume.integrate(depth, color, Rcw, tcw, alloc_depth=alloc)
         self._n_inserted += 1
 
-    def insert_stages(self, kind: str, a, b, Rcw: np.ndarray, tcw: np.ndarray,
-                      submit):
+    def insert_stages(self, kind: str, kf_id: int, a, b, Rcw: np.ndarray,
+                      tcw: np.ndarray, submit):
         """Staged insert (generator): integrate now; the changed-block mask
         fetch is dispatched here and applied at the NEXT keyframe's mesh
         stage, so the mesh lags the integration by one keyframe; then the
@@ -121,14 +135,14 @@ class DenseMapper:
         stage later. ``kind`` "rgbd": (a, b) = (color, depth); "stereo":
         (a, b) = (left, right) gray images."""
         if kind == "rgbd":
-            self._insert_rgbd_core(a, b, Rcw, tcw)
+            self._insert_rgbd_core(kf_id, a, b, Rcw, tcw)
         else:
             left = self.volume._put(a)
             with self._scope("dense.disparity"):
                 disp = disparity(left, self.volume._put(b), max_disp=64)
                 depth = disparity_to_depth(disp, self.cam.bf)
-            self._insert_rgbd_core(left[..., None].expand(-1, -1, 3), depth,
-                                   Rcw, tcw)
+            self._insert_rgbd_core(kf_id, left[..., None].expand(-1, -1, 3),
+                                   depth, Rcw, tcw)
         mesh_due = self._mesh_due()
         prev_ctx = self._touched_ctx
         self._touched_ctx = (self.volume.dispatch_touched(submit)
@@ -150,16 +164,29 @@ class DenseMapper:
             self.mesher.update_finish(ctx, fetched)
         self.remesh_counts.append(self.mesher.last_n_remeshed)
 
-    def insert_keyframe(self, kind: str, a, b, Rcw: np.ndarray,
+    def insert_keyframe(self, kind: str, kf_id: int, a, b, Rcw: np.ndarray,
                         tcw: np.ndarray):
         """Run :meth:`insert_stages` to its end with inline fetches."""
-        for _ in self.insert_stages(kind, a, b, Rcw, tcw, _SyncFetch()):
+        for _ in self.insert_stages(kind, kf_id, a, b, Rcw, tcw,
+                                    _SyncFetch()):
             pass
 
     def rebuild(self, get_pose):
-        raise NotImplementedError(
-            "DenseMapper.rebuild re-integrates after a loop closure; it "
-            "comes with ROADMAP.md queue 1 item 3 (loop closing)")
+        """Re-integrate every stored keyframe at its corrected pose after a
+        loop closure. ``get_pose``: kf_id -> (Rcw, tcw), or (None, None)
+        for a keyframe that no longer exists. The stored raw depth is
+        filtered again as the JAX package does (unquantized)."""
+        # the lagged changed-block fetch refers to the volume being reset
+        self._touched_ctx = None
+        self.volume.reset()
+        self.mesher.invalidate()
+        for dkf in self.keyframes:
+            Rcw, tcw = get_pose(dkf.kf_id)
+            if Rcw is None:
+                continue
+            self.volume.integrate(processing.filter_depth(dkf.depth),
+                                  dkf.color, Rcw, tcw,
+                                  alloc_depth=to_host(dkf.depth))
 
     def cloud(self):
         return self.volume.occupied_cloud()

@@ -1,7 +1,6 @@
 """Batched SO3 / SE3 operations on tensors.
 
-Counterpart of plvs_tpu/geometry/lie.py (the Sim3 part waits for the loop
-closing slice). Same conventions: rotations are [..., 3, 3] matrices, poses
+Counterpart of plvs_tpu/geometry/lie.py, Sim3 included. Same conventions: rotations are [..., 3, 3] matrices, poses
 are (R, t) pairs, SE3 tangents are ordered (rho, theta), and small-angle
 branches use the same Taylor expansions selected elementwise.
 """
@@ -170,6 +169,95 @@ def se3_compose(R1, t1, R2, t2):
 def se3_apply(R, t, p):
     """Apply pose (R [3, 3], t [3]) to points p [..., 3]."""
     return p @ R.transpose(-1, -2) + t
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): (R, t, s); tangent zeta = [rho, theta, sigma] (7,), s = exp(sigma)
+# ---------------------------------------------------------------------------
+
+def _sim3_W(theta_vec: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """The Sim3 'W' matrix such that t = W @ rho.
+
+    W = A I + C hat(theta) + D hat(theta)^2 with the closed-form integrals
+    of int_0^1 e^{sigma u} exp(u hat(theta)) du, and Taylor branches near
+    sigma = 0 and |theta| = 0 selected elementwise.
+    """
+    h = _safe_norm(theta_vec)
+    W = hat(theta_vec)
+    W2 = W @ W
+    es = torch.exp(sigma)
+    eps = 1e-4
+    one = torch.ones_like(sigma)
+
+    s_small = sigma.abs() < eps
+    h_small = h < eps
+    ss = torch.where(s_small, one, sigma)
+    hh = torch.where(h_small, torch.ones_like(h), h)
+    denom = ss * ss + hh * hh
+
+    A = torch.where(s_small, 1.0 + 0.5 * sigma + sigma * sigma / 6.0,
+                    (es - 1.0) / ss)
+    I1 = (es * (ss * torch.sin(hh) - hh * torch.cos(hh)) + hh) / denom
+    I2 = (es * (ss * torch.cos(hh) + hh * torch.sin(hh)) - ss) / denom
+    I0g = (es - 1.0) / ss
+
+    C_gen = I1 / hh
+    D_gen = (torch.where(s_small, A, I0g) - I2) / (hh * hh)
+    C_h0 = torch.where(s_small, 0.5 + sigma / 3.0,
+                       (es * (ss - 1.0) + 1.0) / (ss * ss))
+    D_h0 = torch.where(s_small, 1.0 / 6.0 + sigma / 8.0,
+                       (es * (ss * ss - 2.0 * ss + 2.0) - 2.0) / (2.0 * ss * ss * ss))
+    C_s0 = (1.0 - torch.cos(hh)) / (hh * hh)
+    D_s0 = (hh - torch.sin(hh)) / (hh * hh * hh)
+
+    C = torch.where(h_small, C_h0, torch.where(s_small, C_s0, C_gen))
+    D = torch.where(h_small, D_h0, torch.where(s_small, D_s0, D_gen))
+    I = _eye(theta_vec).expand(W.shape)
+    return A[..., None, None] * I + C[..., None, None] * W + D[..., None, None] * W2
+
+
+def sim3_exp(zeta: torch.Tensor):
+    """sim(3) -> Sim(3): [..., 7] (rho, theta, sigma) -> (R, t, s)."""
+    rho, theta, sigma = zeta[..., :3], zeta[..., 3:6], zeta[..., 6]
+    R = so3_exp(theta)
+    t = (_sim3_W(theta, sigma) @ rho[..., None])[..., 0]
+    return R, t, torch.exp(sigma)
+
+
+def _solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A^-1 b for [..., 3, 3] A by Cramer's rule (the rows' cross products
+    over the determinant): a closed form that forward-mode autodiff under
+    vmap differentiates correctly, where torch.linalg.solve's batched
+    forward rule does not."""
+    r0, r1, r2 = A[..., 0, :], A[..., 1, :], A[..., 2, :]
+    cof = torch.stack([torch.linalg.cross(r1, r2), torch.linalg.cross(r2, r0),
+                       torch.linalg.cross(r0, r1)], -1)
+    det = (r0 * cof[..., :, 0]).sum(-1)
+    return (cof @ b[..., None])[..., 0] / det[..., None]
+
+
+def sim3_log(R: torch.Tensor, t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Sim(3) -> sim(3), solving W rho = t."""
+    theta = so3_log(R)
+    sigma = torch.log(s)
+    rho = _solve3(_sim3_W(theta, sigma), t)
+    return torch.cat([rho, theta, sigma[..., None]], -1)
+
+
+def sim3_inverse(R, t, s):
+    Rt = R.transpose(-1, -2)
+    inv_s = 1.0 / s
+    return Rt, -inv_s[..., None] * (Rt @ t[..., None])[..., 0], inv_s
+
+
+def sim3_compose(R1, t1, s1, R2, t2, s2):
+    """(R1,t1,s1) * (R2,t2,s2): x -> s1 R1 (s2 R2 x + t2) + t1."""
+    return (R1 @ R2, s1[..., None] * (R1 @ t2[..., None])[..., 0] + t1,
+            s1 * s2)
+
+
+def sim3_apply(R, t, s, p):
+    return s[..., None] * (R @ p[..., None])[..., 0] + t
 
 
 def normalize_rotation(R: torch.Tensor) -> torch.Tensor:

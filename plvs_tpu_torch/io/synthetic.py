@@ -2,8 +2,9 @@
 
 A copy of the parts of plvs_tpu/io/synthetic.py the port's tests and chip
 smoke use: the corner-blob and structured-panel textures, the default
-sweep trajectory, and the textured-wall renderer. The renderer's ray table
-comes from the port's own ``cameras.unproject`` on the CPU.
+sweep trajectory, the textured-wall renderer, and the four-wall room with
+its orbit trajectory (the loop-closure scene). The renderers' ray tables
+come from the port's own ``cameras.unproject`` on the CPU.
 """
 
 from __future__ import annotations
@@ -85,6 +86,95 @@ def default_trajectory(n_frames: int = 60):
         t = (-R @ C).astype(np.float32)
         poses.append((R.astype(np.float32), t))
     return poses
+
+
+def orbit_loop_trajectory(n_frames: int = 96, radius: float = 1.0,
+                          wobble: float = 0.05, laps: float = 1.0):
+    """Camera orbiting the room centre looking outward: mid-orbit frames
+    share no wall with the start, so passing 360 degrees is a true
+    place-recognition loop; ``laps`` > 1 keeps revisiting."""
+    poses = []
+    for i in range(n_frames):
+        s = i / (n_frames / laps)
+        ang = 2.0 * np.pi * s
+        C = np.array([radius * np.sin(ang),
+                      wobble * np.sin(4 * np.pi * s),
+                      radius * np.cos(ang)], np.float32)
+        R = _so3_exp_np(np.array([0.0, -ang, 0.0]))
+        t = (-R @ C).astype(np.float32)
+        poses.append((R.astype(np.float32), t))
+    return poses
+
+
+def _unit_z_rays(cam: cam_mod.Camera) -> np.ndarray:
+    """[3, H*W] camera rays of every pixel centre, scaled to z = 1."""
+    h, w = cam.height, cam.width
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    uv = torch.from_numpy(np.stack([xs, ys], -1).reshape(-1, 2))
+    rays = cam_mod.unproject(cam, uv).numpy()
+    return (rays / rays[:, 2:3]).T
+
+
+class SyntheticRoom:
+    """Four textured vertical walls forming a square room (infinite in y),
+    each with its own texture, one texture period spanning a wall (a
+    repeating texture would alias places one period apart).
+
+    Walls: z = +half, z = -half, x = +half, x = -half around the origin.
+    """
+
+    # (axis, sign, u_axis, u_sign) per wall; u = horizontal texture coord
+    _WALLS = (
+        (2, +1.0, 0, +1.0),
+        (2, -1.0, 0, -1.0),
+        (0, +1.0, 2, -1.0),
+        (0, -1.0, 2, +1.0),
+    )
+
+    def __init__(self, cam: cam_mod.Camera, half: float = 3.0,
+                 tex_size: int = 1024, tex_scale: float | None = None,
+                 seed: int = 0, structured: bool = True):
+        self.cam = cam
+        self.half = half
+        self.tex_scale = (tex_size / (2.0 * half)
+                          if tex_scale is None else tex_scale)
+        make = make_structured_texture if structured else make_texture
+        self.texs = [make(tex_size, np.random.default_rng(seed + i))
+                     for i in range(4)]
+        self._rays_c = _unit_z_rays(cam)
+
+    def render(self, R: np.ndarray, t: np.ndarray):
+        """(gray [H, W] f32, depth [H, W] f32 camera-z metres)."""
+        from scipy.ndimage import map_coordinates
+
+        h, w = self.cam.height, self.cam.width
+        Rwc = R.T
+        C = -Rwc @ t
+        rays_w = Rwc @ self._rays_c
+        n = rays_w.shape[1]
+        best_a = np.full((n,), np.inf, np.float32)
+        gray = np.zeros((n,), np.float32)
+        for wi, (ax, sign, uax, usign) in enumerate(self._WALLS):
+            denom = rays_w[ax]
+            denom = np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+            a = (sign * self.half - C[ax]) / denom
+            hit = (a > 0.05) & (a < best_a)
+            if not hit.any():
+                continue
+            X = C[:, None] + a * rays_w
+            tex = self.texs[wi]
+            u = (usign * X[uax, hit] * self.tex_scale) % tex.shape[1]
+            v = (X[1, hit] * self.tex_scale) % tex.shape[0]
+            gray[hit] = map_coordinates(tex, [v, u], order=1, mode="wrap")
+            best_a[hit] = a[hit]
+        depth = best_a.copy()
+        depth[~np.isfinite(depth)] = 0.0
+        return gray.reshape(h, w), depth.reshape(h, w)
+
+    def sequence(self, poses, fps: float = 30.0):
+        for i, (R, t) in enumerate(poses):
+            gray, depth = self.render(R, t)
+            yield i / fps, gray, depth, R, t
 
 
 class SyntheticRGBD:

@@ -22,8 +22,8 @@ Differences from the JAX package, all deliberate:
   ``triangulate_new_points`` switch, ROADMAP.md queue 1 item 7), the
   abortable and staged backend (``abort_check``, ``submit`` /
   ``extra_fetch``, ``process_keyframe_stages``, item 4), the inertial
-  culling gate (item 5), the sharded global BA (``mesh``,
-  ``global_ba_dispatch``, items 3 and 8) are not ported yet, and
+  culling gate (item 5) and the sharded global BA (``mesh``, item 8) are
+  not ported yet (``global_ba_dispatch`` is, synchronously), and
   ``warm_ba_buckets`` has no counterpart (it precompiles XLA shapes).
 """
 
@@ -371,6 +371,17 @@ class LocalMapper:
             map_id = st.active_map
         window = np.sort(st.kfs_of_map(map_id)).astype(np.int64)
         return self._window_ba(window, num_iters=num_iters)
+
+    def global_ba_dispatch(self, map_id: int | None = None,
+                           num_iters: int = 10):
+        """Dispatch half of the global BA after a loop closure: every live
+        keyframe of the map (10 LM x 30 CG); pass the ctx to :meth:`_solve`
+        (or fetch its outs and :meth:`_ba_apply` them)."""
+        st = self.store
+        if map_id is None:
+            map_id = st.active_map
+        window = np.sort(st.kfs_of_map(map_id)).astype(np.int64)
+        return self._ba_dispatch(window, num_iters=num_iters, cg_iters=30)
 
     def _window_ba(self, window: np.ndarray, num_iters: int = 6,
                    cg_iters: int = 30):

@@ -1,17 +1,28 @@
 """Host-side map store: fixed-capacity numpy SoA arrays for keyframes,
 landmarks and observations.
 
-Counterpart of plvs_tpu/slam/map_store.py for the ported slices:
-allocation (with capacity growth), point and line observations, the
-covisibility query (the numpy path; the port does not use the JAX
-package's native host engine — both order neighbours by a stable sort of
-their weights), ``points_in_kfs`` / ``lines_in_kfs``, the keyframe uid
-layer and the tombstones of culled keyframes that the trajectory export
-resolves through, landmark and keyframe removal and merging, landmark
-maintenance, and the store lock. Descriptor columns stay ``np.uint32`` as
-in the JAX package; the tracker views them as int32 when it uploads them.
-The multi-map atlas operations (``create_map``, ``merge_map_into``, ...)
-come with loop closing and map merging (ROADMAP.md queue 1 item 3).
+Counterpart of plvs_tpu/slam/map_store.py: allocation (with capacity
+growth), point and line observations, the covisibility query (numpy;
+neighbours ordered by a stable sort of their weights, as in the JAX
+package), ``points_in_kfs`` / ``lines_in_kfs``, the keyframe uid layer and
+the tombstones of culled keyframes that the trajectory export resolves
+through, landmark and keyframe removal and merging, landmark maintenance,
+the multi-map atlas operations (``create_map``, ``points_of_map``,
+``merge_map_into``, ``ensure_uids``), the full weighted covisibility graph
+of loop closing (``covis_graph_full``), and the store lock. Descriptor
+columns stay ``np.uint32`` as in the JAX package; the tracker views them
+as int32 when it uploads them.
+
+``covis_graph`` and ``spanning_tree`` are numpy copies of the JAX
+package's native engine (plvs_tpu/native/src/plvs_native.cpp): the same
+edges, weights and parents in the same order. The native graph collects its
+weights in a libstdc++ ``std::unordered_map<int64, int32>`` reserved for
+1 << 16 entries (key = i * max_kf + j) and emits them in that table's
+iteration order: a key opening an empty bucket goes to the front of the
+table's list, a key joining a bucket goes to the front of that bucket's
+run, and a rehash (when the table is full) re-inserts the list in its
+order into the larger table. ``covis_graph`` replays that order with the
+table's bucket counts (g++ 12's libstdc++).
 """
 
 from __future__ import annotations
@@ -51,6 +62,89 @@ def _distinctive_rows(desc: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     med = d_sorted.gather(-1, mid[..., None])[..., 0]
     med = torch.where(mask & (cnt > 0), med, BIG)
     return torch.argmin(med, dim=-1)
+
+
+# bucket counts of the native covisibility table, a libstdc++
+# std::unordered_map<int64_t, int32_t> after reserve(1 << 16): it rehashes
+# to the next count when an insert finds it holding as many keys as buckets
+_COVIS_BUCKETS = (67307, 136607, 277261, 562841, 1142821, 2320627, 4712381,
+                  9569143, 19431899, 39460231)
+
+
+def _table_order(keys: np.ndarray, n_buckets: int) -> np.ndarray:
+    """Iteration order (indices into ``keys``) of a libstdc++ hash table
+    after inserting the distinct ``keys`` in order into an empty table of
+    ``n_buckets`` buckets: buckets newest-opened first, and within a bucket
+    keys newest-inserted first."""
+    bucket = keys % n_buckets
+    bsort = np.argsort(bucket, kind="stable")
+    bstart = np.r_[0, np.nonzero(np.diff(bucket[bsort]))[0] + 1]
+    opened = np.empty(len(keys), np.int64)
+    opened[bsort] = np.repeat(bsort[bstart], np.diff(np.r_[bstart,
+                                                           len(bsort)]))
+    return np.lexsort((-np.arange(len(keys)), -opened))
+
+
+def covis_graph(obs_kf: np.ndarray, obs_pt: np.ndarray, obs_mask: np.ndarray,
+                max_kf: int, max_pts: int, min_weight: int = 15):
+    """Full weighted covisibility graph as COO edges (i < j, weight), in the
+    native engine's order (module docstring)."""
+    obs_kf = np.asarray(obs_kf, np.int64)
+    obs_pt = np.asarray(obs_pt, np.int64)
+    ok = (np.asarray(obs_mask, bool) & (obs_pt >= 0) & (obs_pt < max_pts)
+          & (obs_kf >= 0) & (obs_kf < max_kf))
+    order = np.argsort(obs_pt[ok], kind="stable")
+    pt, kf = obs_pt[ok][order], obs_kf[ok][order]
+    n = len(pt)
+    empty = np.zeros((0,), np.int32)
+    if n < 2:
+        return empty, empty, empty
+    # every pair (x, y), x < y, of one landmark's observations, in the
+    # native loop's order: landmark, then x, then y
+    starts = np.r_[0, np.nonzero(pt[1:] != pt[:-1])[0] + 1]
+    ends = np.r_[starts[1:], n]
+    partners = np.repeat(ends, ends - starts) - np.arange(n) - 1
+    xs = np.repeat(np.arange(n), partners)
+    ys = xs + 1 + (np.arange(len(xs))
+                   - np.repeat(np.cumsum(partners) - partners, partners))
+    i, j = kf[xs], kf[ys]
+    keep = i != j
+    key = np.minimum(i, j)[keep] * max_kf + np.maximum(i, j)[keep]
+    if len(key) == 0:
+        return empty, empty, empty
+    uniq, first, w = np.unique(key, return_index=True, return_counts=True)
+    ins = np.argsort(first)          # distinct keys in insertion order
+    keys, w = uniq[ins], w[ins]
+    # the table's list: each rehash re-inserts the list so far, then the
+    # keys up to the next rehash go in
+    it = np.zeros((0,), np.int64)
+    done = 0
+    for b, nxt in zip(_COVIS_BUCKETS, _COVIS_BUCKETS[1:] + (None,)):
+        upto = len(keys) if nxt is None else min(len(keys), b)
+        seq = np.r_[it, np.arange(done, upto)]
+        it = seq[_table_order(keys[seq], b)]
+        done = upto
+        if done == len(keys):
+            break
+    it = it[w[it] >= min_weight]
+    return ((keys[it] // max_kf).astype(np.int32),
+            (keys[it] % max_kf).astype(np.int32), w[it].astype(np.int32))
+
+
+def spanning_tree(ei: np.ndarray, ej: np.ndarray, w: np.ndarray,
+                  max_kf: int) -> np.ndarray:
+    """Parent per keyframe (-1 for roots): for each j, the i of the first
+    edge (i, j) in edge order with the largest positive weight (the native
+    engine's strict-greater scan)."""
+    ei, ej, w = (np.asarray(a, np.int64) for a in (ei, ej, w))
+    parent = np.full((max_kf,), -1, np.int32)
+    pos = np.nonzero(w > 0)[0]
+    if len(pos) == 0:
+        return parent
+    order = pos[np.lexsort((pos, -w[pos], ej[pos]))]
+    head = np.r_[True, ej[order][1:] != ej[order][:-1]]
+    parent[ej[order][head]] = ei[order][head]
+    return parent
 
 
 @dataclasses.dataclass
@@ -216,8 +310,59 @@ class MapStore:
             uid = parent
         return None
 
+    def ensure_uids(self):
+        """Assign uids to live keyframes that lack one."""
+        for k in np.nonzero(self.kf_mask & (self.kf_uid < 0))[0]:
+            uid = self._next_kf_uid
+            self._next_kf_uid += 1
+            self.kf_uid[k] = uid
+            self.uid_slot[uid] = int(k)
+
+    # -- multi-map atlas -----------------------------------------------------
+
+    def create_map(self) -> int:
+        """Start a fresh map; later keyframes belong to it."""
+        self.active_map = self.n_maps
+        self.n_maps += 1
+        return self.active_map
+
     def kfs_of_map(self, map_id: int) -> np.ndarray:
         return np.nonzero(self.kf_mask & (self.kf_map == map_id))[0]
+
+    def points_of_map(self, map_id: int) -> np.ndarray:
+        """Live points whose reference keyframe lies in ``map_id``."""
+        pts = np.nonzero(self.pt_mask)[0]
+        ref = self.pt_ref_kf[pts]
+        ok = (ref >= 0) & (self.kf_map[np.clip(ref, 0, self.max_kf - 1)]
+                           == map_id)
+        return pts[ok]
+
+    def merge_map_into(self, src_map: int, dst_map: int, G_R: np.ndarray,
+                       G_t: np.ndarray, G_s: float = 1.0):
+        """Weld ``src_map`` into ``dst_map``'s frame: X_dst = s G_R X_src +
+        G_t for every landmark, T_kf' = T_kf o G^-1 for every keyframe."""
+        kfs = self.kfs_of_map(src_map)
+        pts = self.points_of_map(src_map)
+        self.pt_xyz[pts] = (
+            G_s * self.pt_xyz[pts] @ G_R.T + G_t).astype(np.float32)
+        lns = np.nonzero(self.ln_mask)[0]
+        if len(lns):
+            ref = self.ln_ref_kf[lns]
+            sel = lns[(ref >= 0)
+                      & (self.kf_map[np.clip(ref, 0, self.max_kf - 1)]
+                         == src_map)]
+            for arr in (self.ln_Xs, self.ln_Xe):
+                arr[sel] = (G_s * arr[sel] @ G_R.T + G_t).astype(np.float32)
+        # a camera centre maps like any world point (C' = s G_R C + G_t),
+        # so R' = R G_R^T and t' = s t - R' G_t
+        for k in kfs:
+            Rn = self.kf_R[k] @ G_R.T
+            self.kf_t[k] = (G_s * self.kf_t[k] - Rn @ G_t).astype(np.float32)
+            self.kf_R[k] = Rn.astype(np.float32)
+        self.kf_map[kfs] = dst_map
+        if self.active_map == src_map:
+            self.active_map = dst_map
+        self.version += 1
 
     def alloc_pts(self, n: int) -> np.ndarray:
         free = np.nonzero(~self.pt_mask[: self._n_pt])[0][:n]
@@ -443,6 +588,15 @@ class MapStore:
         ids = np.nonzero(counts >= min_weight)[0]
         ids = ids[np.argsort(-counts[ids], kind="stable")]
         return ids, counts[ids]
+
+    def covis_graph_full(self, min_weight: int = 15):
+        """The full weighted covisibility graph in one pass over the
+        observation table: COO edges (i, j, w), i < j, over keyframe slots,
+        in the JAX package's native order."""
+        top = self._obs_top
+        return covis_graph(self.obs_kf[:top], self.obs_pt[:top],
+                           self.obs_mask[:top], self.max_kf, self.max_pts,
+                           min_weight=min_weight)
 
     def points_in_kfs(self, kf_ids: np.ndarray) -> np.ndarray:
         okf, opt, _ = self.live_obs()

@@ -1,18 +1,22 @@
-"""System facade for synchronous RGB-D and rectified-stereo tracking with
-points and lines, and dense TSDF mapping.
+"""System facade for synchronous RGB-D and rectified-stereo SLAM with
+points and lines, loop closing, relocalization and dense TSDF mapping.
 
 Counterpart of plvs_tpu/slam/system.py for the ported slices:
 ``SystemConfig`` keeps every field and default of the JAX package, and the
 settings whose machinery is not ported yet raise ``NotImplementedError``
 naming the ROADMAP.md item that ports them — none of them gets a stand-in.
-New map points and line landmarks come from depth at every keyframe. After
-each keyframe the synchronous backend runs inline, as the JAX package's
-does without loop closing: with ``local_ba`` the local mapper (culling,
-line triangulation, fuse, landmark maintenance, the windowed local BA,
-keyframe culling), then with ``dense_mapping`` the dense stage (depth —
-from stereo through kernel K3 on the stereo path —, filter, TSDF
-integration and the incremental mesh) at the keyframe's adjusted pose; the
-tracker then continues from that stored pose.
+New map points and line landmarks come from depth at every keyframe. The
+keyframe database (place recognition) is always built: relocalization
+needs it. After each keyframe the synchronous backend runs inline, as the
+JAX package's does: with ``local_ba`` the local mapper (culling, line
+triangulation, fuse, landmark maintenance, the windowed local BA, keyframe
+culling), then with ``dense_mapping`` the dense stage (depth — from stereo
+through kernel K3 on the stereo path —, filter, TSDF integration and the
+incremental mesh) at the keyframe's adjusted pose, then with
+``loop_closing`` the loop closer (else the keyframe is only indexed). A
+closed loop is followed by the global BA (``global_ba_on_loop`` with
+``local_ba``) and the dense map's rebuild at the corrected poses. The
+tracker then continues from the keyframe's stored pose.
 """
 
 from __future__ import annotations
@@ -28,9 +32,12 @@ from ..geometry import cameras as cam_mod
 from ..geometry import lie
 from ..ops import resolve_device
 from ..utils.profiling import Stopwatch
+from ..vocab import bow
 from . import frame as frame_mod
 from . import tracking
+from .keyframe_database import KeyFrameDatabase
 from .local_mapping import LocalMapper
+from .loop_closing import LoopCloser
 from .map_store import MapStore
 from .tracking import OK, Tracker
 
@@ -96,10 +103,6 @@ class SystemConfig:
 
 # settings outside this slice -> (value that is in the slice, ROADMAP item)
 _NOT_IN_SLICE = {
-    "loop_closing": (False, "queue 1 item 3, place recognition and loop "
-                            "closing"),
-    "vocabulary_path": (None, "queue 1 item 3, place recognition and loop "
-                              "closing"),
     "dense_segmentation": (False, "queue 1 item 7, segmentation"),
     "pipelined": (False, "queue 1 item 4, pipelined runtime"),
     "async_mapping": (False, "queue 1 item 4, pipelined runtime"),
@@ -134,6 +137,10 @@ class System:
         self.cam = cam
         self.store = MapStore(max_kf=c.max_kf, max_pts=c.max_pts,
                               n_kp=c.num_features)
+        self.kfdb = KeyFrameDatabase(self.store, device=self.device)
+        if c.vocabulary_path:
+            # .txt / .bin (DBoW2), .npz (a regular or a general tree)
+            self.kfdb.voc = bow.load_vocabulary(c.vocabulary_path)
         self.tracker = Tracker(
             cam, self.store, num_features=c.num_features,
             min_kf_inliers=c.min_kf_inliers, kf_ratio=c.kf_ratio,
@@ -141,6 +148,7 @@ class System:
             sensor=c.sensor, fov_centers_kf=c.fov_centers_kf,
             max_fov_centers_distance=c.max_fov_centers_distance,
             min_init_pts=max(100, int(round(300 * c.image_scale ** 2))),
+            kfdb=self.kfdb, new_map_after_lost=c.new_map_after_lost,
             device=self.device)
         tr = self.tracker
         tr.only_tracking = c.only_tracking
@@ -149,13 +157,14 @@ class System:
         tr.max_keylines = c.max_lines
         tr.depth_decimation = c.depth_upload_decimation
         tr.fixed_shapes = c.backend_fixed_shapes
-        # the keyframe database (place recognition) is the loop-closing
-        # slice's; culls notify it once it exists
-        self.kfdb = None
         self.local_mapper = LocalMapper(
             cam, self.store, scale=c.scale, n_levels=c.n_levels,
             use_lines=c.use_lines, kfdb=self.kfdb,
             fixed_shapes=c.backend_fixed_shapes, device=self.device)
+        self.loop_closer = (LoopCloser(self.store, kfdb=self.kfdb, cam=cam,
+                                       device=self.device)
+                            if c.loop_closing else None)
+        self.loops_closed = []  # (kf_id, info) per closed loop
         self.dense_mapper = None
         if c.dense_mapping:
             self.dense_mapper = DenseMapper(
@@ -174,6 +183,8 @@ class System:
         mapper's through ``stopwatch``."""
         self.stopwatch = stopwatch
         self.local_mapper.stopwatch = stopwatch
+        if self.loop_closer is not None:
+            self.loop_closer.stopwatch = stopwatch
         if self.dense_mapper is not None:
             self.dense_mapper.stopwatch = stopwatch
 
@@ -263,17 +274,38 @@ class System:
         return res.state, res.R, res.t
 
     def _backend_keyframe(self, kf_id: int, dense_payload=None):
-        """The synchronous per-keyframe backend: the local mapper, then the
-        dense stage at the keyframe's pose after bundle adjustment."""
+        """The synchronous per-keyframe backend: the local mapper, the dense
+        stage at the keyframe's pose after bundle adjustment, then the loop
+        closer (or the keyframe database alone); after a closure the global
+        BA and the dense rebuild."""
+        st = self.store
         if self.config.local_ba:
             with self.stopwatch.scope("local_mapping"):
                 self.local_mapper.process_keyframe(kf_id)
         if self.dense_mapper is not None and dense_payload is not None:
             kind, a, b = dense_payload
-            st = self.store
             with self.stopwatch.scope("dense_mapping"):
-                self.dense_mapper.insert_keyframe(kind, a, b, st.kf_R[kf_id],
+                self.dense_mapper.insert_keyframe(kind, kf_id, a, b,
+                                                  st.kf_R[kf_id],
                                                   st.kf_t[kf_id])
+        if self.loop_closer is None:
+            self.kfdb.add(kf_id)
+            return None
+        with self.stopwatch.scope("loop_closing"):
+            info = self.loop_closer.process_keyframe(kf_id)
+        if info is None:
+            return None
+        self.loops_closed.append((kf_id, info))
+        if self.config.global_ba_on_loop and self.config.local_ba:
+            with self.stopwatch.scope("global_ba"):
+                info["global_ba"] = self.local_mapper._solve(
+                    self.local_mapper.global_ba_dispatch())
+        if self.dense_mapper is not None:
+            with self.stopwatch.scope("dense.rebuild"):
+                self.dense_mapper.rebuild(
+                    lambda k: (st.kf_R[k], st.kf_t[k])
+                    if st.kf_mask[k] else (None, None))
+        return info
 
     def retro_trajectory(self):
         """(ts, R_cw, t_cw) per frame, reconstructed through the current

@@ -19,8 +19,17 @@ Differences from the JAX program, all deliberate:
   u16 millimetre depth, depth decimated on the fast path) instead of the
   JAX package's uint32 plane packing — the quantized values are identical.
 
-Relocalization, the monocular initializer, and the deferred (pipelined)
-resolution are not in the ported slices.
+A lost map earns the JAX package's grace: RECENTLY_LOST (a map of at
+least ``min_kf_recently_lost`` keyframes) until ``time_recently_lost``
+seconds, then LOST; every lost frame tries to relocalize against the
+keyframe database (BoW candidates of the active map, descriptor matches
+through K1, a 3D-3D RANSAC on the frame's depth, then a local-map match of
+the candidate's window), and ``new_map_after_lost`` lost frames on a mature
+map start a new map of the atlas. The relocalization RANSAC draws from a
+``torch.Generator`` seeded 7 (the JAX package's ``PRNGKey(7)``). The
+monocular branch of relocalization (PnP), the monocular initializer, IMU
+coasting and the deferred (pipelined) resolution are not in the ported
+slices.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ from ..features import matching
 from ..geometry import cameras as cam_mod
 from ..geometry import lie
 from ..ops import resolve_device
-from ..solvers import pose_opt
+from ..solvers import pose_opt, sim3_solver
 from . import frame as frame_mod
 from .map_store import MapStore
 
@@ -365,6 +374,7 @@ class Tracker:
                  sensor: str = "rgbd", fov_centers_kf: bool = False,
                  max_fov_centers_distance: float = 0.4,
                  min_init_pts: int = 300, line_track_weight: float = 2.0,
+                 kfdb=None, new_map_after_lost: int = 150,
                  device: str | torch.device = "cuda"):
         if sensor not in ("rgbd", "stereo"):
             raise NotImplementedError(
@@ -388,6 +398,8 @@ class Tracker:
         self.n_levels = 8
         self.max_keylines = 128
         self.depth_decimation = 1
+        self.kfdb = kfdb  # KeyFrameDatabase, for relocalization
+        self._reloc_gen = torch.Generator(device=self.device).manual_seed(7)
         self.max_depth = max_depth_factor * (cam.bf / float(cam.params[0]))
         self.line_max_depth = max(20.0, 2.0 * self.max_depth)
         self.state = NO_IMAGES_YET
@@ -402,8 +414,15 @@ class Tracker:
         self.ref_kf_npts = 0
         self.frames_since_kf = 0
         self.frame_id = 0
+        # after this many consecutive LOST frames on a map of >= 5
+        # keyframes, park it and start a new one (0 disables)
+        self.new_map_after_lost = new_map_after_lost
+        self.lost_frames = 0
+        self.maps_created = 0
+        # RECENTLY_LOST grace period (seconds), for maps of enough keyframes
         self.time_recently_lost = 5.0
         self.min_kf_recently_lost = 10
+        self._lost_ts = 0.0
         self.only_tracking = False
         self.fov_centers_kf = fov_centers_kf
         self.max_fov_centers_distance = max_fov_centers_distance
@@ -418,19 +437,106 @@ class Tracker:
                       fl=None) -> TrackResult:
         if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
             res = self._initialize_depth(fr, timestamp, fl)
-        elif self.state in (LOST, RECENTLY_LOST):
+        elif self.state == RECENTLY_LOST:
             res = self._relocalize(fr, timestamp)
+            if res.state != OK:
+                if timestamp - self._lost_ts > self.time_recently_lost:
+                    self.state = LOST
+                res = TrackResult(self.state, self.R, self.t, res.n_inliers,
+                                  res.kp_pt_id)
+        elif self.state == LOST:
+            res = self._relocalize(fr, timestamp)
+            if res.state != OK:
+                self.lost_frames += 1
+                if (self.new_map_after_lost
+                        and self.lost_frames >= self.new_map_after_lost
+                        and len(self.store.kfs_of_map(
+                            self.store.active_map)) >= 5):
+                    self._create_map_in_atlas()
+            else:
+                self.lost_frames = 0
         else:
             res = self._track(fr, timestamp, fl)
+            self.lost_frames = 1 if res.state == LOST else 0
         self.last_frame = fr
         self.frame_id += 1
         return res
 
-    def _relocalize(self, fr, timestamp):
-        raise NotImplementedError(
-            "tracking was lost: relocalization needs the keyframe database "
-            "of ROADMAP.md queue 1 item 3 (place recognition and loop "
-            "closing), which is not ported yet")
+    def _create_map_in_atlas(self):
+        """Park the current map in the atlas and start a new one; the next
+        frame initializes it."""
+        self.store.create_map()
+        self.maps_created += 1
+        self.state = NOT_INITIALIZED
+        self.R = np.eye(3, dtype=np.float32)
+        self.t = np.zeros(3, np.float32)
+        self.vel_R = np.eye(3, dtype=np.float32)
+        self.vel_t = np.zeros(3, np.float32)
+        self._vel_warm = 0
+        self.ref_kf = -1
+        self.ref_kf_npts = 0
+        self.frames_since_kf = 0
+        self.lost_frames = 0
+        self.last_kp_pt_id = None
+
+    def _relocalize(self, fr: frame_mod.Frame, timestamp: float) -> TrackResult:
+        """Recover a lost frame against the keyframe database: candidates
+        of the active map, descriptor matches to each (K1), a 3D-3D SE3
+        RANSAC from the frame's back-projected keypoints to the matched
+        landmarks, then a local-map match of the candidate's window from
+        that pose; the first candidate with 30 inliers wins."""
+        st = self.store
+        empty = np.full((fr.kp.xy.shape[0],), -1, np.int64)
+        if self.kfdb is None:
+            return TrackResult(self.state, self.R, self.t, 0, empty)
+        cands = self.kfdb.relocalization_candidates(fr.kp.desc, fr.kp.mask)
+        cands = [(k, s) for k, s in cands if st.kf_map[k] == st.active_map]
+        depth = to_host(fr.depth)
+        for kf_id, _score in cands:
+            m_kf = st.kf_kp_mask[kf_id] & (st.kf_kp_pt[kf_id] >= 0)
+            idx, _ = matching.match_nn_ratio(
+                fr.kp.desc, self._t(st.kf_kp_desc[kf_id].view(np.int32)),
+                fr.kp.mask, self._t(m_kf), max_dist=64, ratio=0.85)
+            idx = idx.cpu().numpy()
+            sel = np.nonzero((idx >= 0) & (depth > 0))[0]
+            if len(sel) < 15:
+                # the JAX package's 2D-3D PnP branch, which needs 12 matches
+                if (idx >= 0).sum() < 12:
+                    continue
+                raise NotImplementedError(
+                    "relocalization from matches without depth is the PnP "
+                    "branch; ROADMAP.md queue 1 item 7 (mono and the rest) "
+                    "ports solvers/pnp.py")
+            P = fr.xyz_cam[self._t(sel)]                       # camera frame
+            Q = self._t(st.pt_xyz[st.kf_kp_pt[kf_id][idx[sel]]])  # world
+            res = sim3_solver.sim3_ransac(
+                P, Q, torch.ones((len(sel),), dtype=torch.bool,
+                                 device=self.device),
+                self._reloc_gen, with_scale=False, inlier_thresh=0.10)
+            if int(res.n_inliers) < 15:
+                continue
+            Rwc = res.R.cpu().numpy()
+            twc = res.t.cpu().numpy()
+            R0 = Rwc.T.astype(np.float32)
+            t0 = (-Rwc.T @ twc).astype(np.float32)
+            # refine with the candidate's local map
+            covis, _ = st.covisibility(kf_id, min_weight=5)
+            window = np.concatenate([[kf_id], covis[:10]])
+            pts = st.points_in_kfs(window)
+            pts = pts[st.pt_mask[pts]]
+            R2, t2, n2, kp_pt2 = self._match_step(fr, R0, t0, pts, radius=8.0)
+            if n2 < 30:
+                continue
+            self.R, self.t = R2, t2
+            self.vel_R = np.eye(3, dtype=np.float32)
+            self.vel_t = np.zeros(3, np.float32)
+            self._vel_warm = 0
+            self.state = OK
+            self.ref_kf = kf_id
+            self.ref_kf_npts = -1
+            self.last_kp_pt_id = kp_pt2
+            return TrackResult(OK, R2, t2, int(n2), kp_pt2)
+        return TrackResult(self.state, self.R, self.t, 0, empty)
 
     # ------------------------------------------------------------------
     def _initialize_depth(self, fr: frame_mod.Frame, timestamp: float,
@@ -525,6 +631,7 @@ class Tracker:
         ctx = self._ctx_from(asm, fr, fl, timestamp, use_pl)
         res = self._finish_fused(out.cpu().numpy(), ctx)
         self.last_frame = fr
+        self.lost_frames = 1 if res.state == LOST else 0
         self.frame_id += 1
         return res
 
@@ -617,8 +724,12 @@ class Tracker:
         counters, keyframe decision + creation."""
         st = self.store
         if n2 < 10:
-            self.state = (RECENTLY_LOST if st.num_keyframes
-                          >= self.min_kf_recently_lost else LOST)
+            # a mature map earns the RECENTLY_LOST grace period
+            if st.num_keyframes >= self.min_kf_recently_lost:
+                self.state = RECENTLY_LOST
+                self._lost_ts = timestamp
+            else:
+                self.state = LOST
             return TrackResult(self.state, self.R, self.t, int(n2), kp_pt2)
 
         R_last, t_last = self.R, self.t

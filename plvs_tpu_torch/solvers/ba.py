@@ -256,9 +256,21 @@ def _dot(a, b):
     return sum((x * y).sum() for x, y in zip(a, b))
 
 
-def _pcg(matvec, precond, b, cg_iters: int):
+def _guard_abs(d, tiny):
+    """A denominator kept off zero: |d| < 1e-20 reads 1e-20 (the BA's)."""
+    return torch.where(d.abs() < 1e-20, tiny, d)
+
+
+def _guard_max(d, tiny):
+    """max(d, 1e-20) (the pose graph's)."""
+    return torch.maximum(d, tiny)
+
+
+def _pcg(matvec, precond, b, cg_iters: int, guard=_guard_abs):
     """Preconditioned CG on a tuple of blocks from x = 0; the JAX loop runs
-    while i < cg_iters and rz > 1e-12 rz0. Returns (x, active iterations)."""
+    while i < cg_iters and rz > 1e-12 rz0. ``guard`` keeps the step's
+    denominators off zero as the JAX solver at hand does. Returns (x,
+    active iterations)."""
     r = b
     x = tuple(torch.zeros_like(v) for v in b)
     p = z = precond(*r)
@@ -268,13 +280,12 @@ def _pcg(matvec, precond, b, cg_iters: int):
     for _ in range(cg_iters):
         active = rz > 1e-12 * rz0
         Ap = matvec(*p)
-        pAp = _dot(p, Ap)
-        alpha = rz / torch.where(pAp.abs() < 1e-20, tiny, pAp)
+        alpha = rz / guard(_dot(p, Ap), tiny)
         xn = tuple(xi + alpha * pi for xi, pi in zip(x, p))
         rn = tuple(ri - alpha * Ai for ri, Ai in zip(r, Ap))
         zn = precond(*rn)
         rz_new = _dot(rn, zn)
-        beta = rz_new / torch.where(rz.abs() < 1e-20, tiny, rz)
+        beta = rz_new / guard(rz, tiny)
         pn = tuple(zi + beta * pi for zi, pi in zip(zn, p))
         x = tuple(torch.where(active, a, c) for a, c in zip(xn, x))
         r = tuple(torch.where(active, a, c) for a, c in zip(rn, r))

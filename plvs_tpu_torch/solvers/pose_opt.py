@@ -146,7 +146,10 @@ def pose_optimize(cam: cam_mod.Camera, R0: torch.Tensor, t0: torch.Tensor,
                 Re, te = lie.se3_compose(R, t, Rp_inv, tp_inv)
                 H = H + prior_info
                 b = b - prior_info @ lie.se3_log(Re, te)
-            dx = torch.linalg.solve(H + 1e-6 * eye6, b)
+            # solve_ex: no error check, as jnp.linalg.solve — a frame
+            # without features gives a NaN step (then too few inliers)
+            # instead of raising on the card
+            dx = torch.linalg.solve_ex(H + 1e-6 * eye6, b)[0]
             dR, dt = lie.se3_exp(dx)
             Rn, t = lie.se3_compose(dR, dt, R, t)
             R = lie.normalize_rotation(Rn)

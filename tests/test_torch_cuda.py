@@ -11,7 +11,9 @@ comparison is exact. K2 runs at every half-resolution grid of the cameras
 the repo configures and on grids that defeat a bounded sweep count; K3 at
 D in {3, 16, 64, 128}, r in {1, 2, 3}, ragged, main-path and KITTI shapes.
 The keyframe backend's bundle adjustment and one local-mapper pass run on
-the card against the same code on the CPU.
+the card against the same code on the CPU, and so do place recognition's
+vocabulary descent (exact), the pose graph (under sync-debug mode: no host
+read inside the solve) and one loop-closer pass.
 """
 
 import math
@@ -27,7 +29,9 @@ from plvs_tpu_torch.io import synthetic
 from plvs_tpu_torch.dense import stereo_depth
 from plvs_tpu_torch.ops import cc_labels, hamming, stereo
 from plvs_tpu_torch.slam import LocalMapper, System, SystemConfig
-from plvs_tpu_torch.solvers import ba
+from plvs_tpu_torch.slam import keyframe_database, loop_closing
+from plvs_tpu_torch.solvers import ba, pose_graph
+from plvs_tpu_torch.vocab import bow
 
 pytestmark = pytest.mark.cuda
 
@@ -433,3 +437,131 @@ def test_local_mapper_pass_on_cuda_matches_cpu(dev):
     np.testing.assert_allclose(b.kf_R[live], a.kf_R[live], atol=1e-2)
     np.testing.assert_allclose(b.kf_t[live], a.kf_t[live], atol=1e-2)
     np.testing.assert_allclose(b.pt_xyz[pts], a.pt_xyz[pts], atol=0.1)
+
+
+def test_bow_descent_on_cuda_matches_cpu(dev):
+    """Word ids of 1024 random descriptors through the shipped 100k tree
+    and a small trained tree, on the card and on the CPU: exact."""
+    rng = np.random.default_rng(0)
+    d = _words(rng, 1024, "cpu")
+    trained = bow.train(
+        rng.integers(0, 2 ** 32, (2000, 8), dtype=np.uint64).astype(
+            np.uint32), k=8, depth=3, seed=0)
+    for voc in (bow.load_vocabulary(keyframe_database._DEFAULT_VOCAB),
+                trained):
+        got = bow.quantize(voc, d.to(dev))
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), bow.quantize(voc, d))
+
+
+def _pose_chain(K: int = 24, drift: float = 0.02, seed: int = 0):
+    """An odometry circle with drift and one loop edge back to the start
+    (tests/test_loop.py's construction, in the port's own lie)."""
+    rng = np.random.default_rng(seed)
+    gt_R = lie.so3_exp(torch.tensor(
+        [[0.0, 2 * np.pi * k / K, 0.0] for k in range(K)],
+        dtype=torch.float32))
+    C = torch.tensor([[np.sin(2 * np.pi * k / K) * 3, 0.0,
+                       3 - np.cos(2 * np.pi * k / K) * 3] for k in range(K)],
+                     dtype=torch.float32)
+    gt_t = -(gt_R @ C[..., None])[..., 0]
+    one = torch.ones(K)
+    pairs = torch.stack([torch.arange(1, K), torch.arange(0, K - 1)], -1)
+    eR, et, es = pose_graph.make_edges_from_poses(gt_R, gt_t, one, pairs)
+    noise = lie.so3_exp(torch.from_numpy(
+        (rng.normal(size=(K - 1, 3)) * drift).astype(np.float32)))
+    eR = eR @ noise
+    et = et + torch.from_numpy((rng.normal(size=(K - 1, 3))
+                                * drift).astype(np.float32))
+    R, t = [gt_R[0]], [gt_t[0]]
+    for k in range(K - 1):
+        R.append(eR[k] @ R[-1])
+        t.append(eR[k] @ t[-1] + et[k])
+    lR, lt, ls = pose_graph.make_edges_from_poses(
+        gt_R, gt_t, one, torch.tensor([[K - 1, 0]]))
+    fixed = torch.zeros(K, dtype=torch.bool)
+    fixed[0] = True
+    E = K
+    return pose_graph.PoseGraphProblem(
+        torch.stack(R), torch.stack(t), one, fixed,
+        torch.cat([pairs[:, 0], torch.tensor([K - 1])]),
+        torch.cat([pairs[:, 1], torch.tensor([0])]),
+        torch.cat([eR, lR]), torch.cat([et, lt]), torch.cat([es, ls]),
+        torch.ones(E), torch.ones(E, dtype=torch.bool))
+
+
+def test_pose_graph_on_cuda_matches_cpu(dev):
+    """12 LM x 50 CG on the card, with no host read inside the solve
+    (sync-debug mode "error"), against the CPU: poses within 1e-3 (the
+    two devices' float32 sums and autodiff order differ; the JAX parity
+    test holds the CPU solve to 1e-3 as well)."""
+    prob = _pose_chain()
+    R0, t0, _, info0 = pose_graph.optimize(prob, num_iters=12, cg_iters=50,
+                                           fix_scale=True)
+    probd = pose_graph.PoseGraphProblem(*(a.to(dev) for a in prob))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        R1, t1, _, info1 = pose_graph.optimize(probd, num_iters=12,
+                                               cg_iters=50, fix_scale=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(info1["cost"]) < 0.05 * float(info1["cost0"])
+    np.testing.assert_allclose(R1.cpu().numpy(), R0.numpy(), atol=1e-3)
+    np.testing.assert_allclose(t1.cpu().numpy(), t0.numpy(), atol=1e-3)
+
+
+def test_loop_closer_pass_on_cuda_matches_cpu(dev):
+    """A 12-frame sweep mapped by the port on the CPU, then a manufactured
+    drifted revisit of keyframe 0 (tests/test_slam_e2e.py's construction)
+    closed on the card and on the CPU from the same store: the same
+    candidate, inliers within 10% (each device draws its own RANSAC
+    samples) and corrected keyframe translations within 2 cm."""
+    cam = cameras.pinhole(300.0, 300.0, 160.0, 120.0, width=320, height=240,
+                          bf=24.0)
+    scene = synthetic.SyntheticRGBD(cam, wall_z=3.0, seed=4, tex_size=2048,
+                                    tex_scale=220.0)
+    poses = [(np.eye(3, dtype=np.float32),
+              -np.array([0.1 * i, 0.0, 0.0], np.float32)) for i in range(12)]
+    system = System(cam, SystemConfig(
+        num_features=512, n_levels=4, max_kf=32, max_pts=16384,
+        max_kf_interval=5, loop_closing=False), device="cpu")
+    for ts, g, d, _, _ in scene.sequence(poses=poses):
+        system.track_rgbd(g, d, ts)
+    st = system.store
+    kf_new = st.alloc_kf()
+    st.kf_mask[kf_new] = True
+    st.kf_frame_id[kf_new] = 1000
+    st.kf_R[kf_new] = st.kf_R[0]
+    st.kf_t[kf_new] = st.kf_t[0] + np.array([0.25, 0.1, -0.15], np.float32)
+    for a in ("kf_kp_xy", "kf_kp_uvr", "kf_kp_desc", "kf_kp_octave",
+              "kf_kp_angle", "kf_kp_mask"):
+        getattr(st, a)[kf_new] = getattr(st, a)[0]
+    sel = np.nonzero(st.kf_kp_mask[0] & (st.kf_kp_pt[0] >= 0))[0]
+    old = st.kf_kp_pt[0][sel]
+    new = st.alloc_pts(len(sel))
+    Rwc = st.kf_R[kf_new].T
+    st.pt_xyz[new] = (st.pt_xyz[old] @ st.kf_R[0].T + st.kf_t[0]) @ Rwc.T \
+        - Rwc @ st.kf_t[kf_new]
+    st.pt_desc[new] = st.pt_desc[old]
+    st.pt_mask[new] = True
+    st.pt_ref_kf[new] = st.pt_first_kf[new] = kf_new
+    st.add_observations(kf_new, new, sel)
+    state = _store_state(st)
+    out = {}
+    for where in ("cpu", dev):
+        s2 = convert.map_store_from_numpy(state)
+        db = keyframe_database.KeyFrameDatabase(s2, device=where)
+        for k in np.nonzero(s2.kf_mask)[0]:
+            if k != kf_new:
+                db.add(int(k))
+        closer = loop_closing.LoopCloser(s2, kfdb=db, cam=cam, device=where,
+                                         required_coincidences=1)
+        info = closer.process_keyframe(kf_new)
+        assert info is not None
+        out[str(where)] = (s2, info)
+    (a, ia), (b, ib) = out["cpu"], out[str(dev)]
+    assert ib["candidate"] == ia["candidate"] == 0
+    assert abs(ib["inliers"] - ia["inliers"]) <= 0.1 * ia["inliers"]
+    live = a.kf_mask
+    np.testing.assert_allclose(b.kf_t[live], a.kf_t[live], atol=0.02)

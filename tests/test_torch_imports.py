@@ -43,6 +43,8 @@ def test_the_walk_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "plvs_tpu_torch/ops/stereo.py" in names
     assert "plvs_tpu_torch/dense/mapping.py" in names
+    assert "plvs_tpu_torch/vocab/bow.py" in names
+    assert "plvs_tpu_torch/slam/keyframe_database.py" in names
     assert len(names) > 30
     for src in ("import jax.numpy as jnp", "from plvs_tpu.ops import stereo",
                 "import importlib\nimportlib.import_module('jax')",
@@ -58,3 +60,29 @@ def test_no_jax_or_plvs_tpu_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [m for m in _imports(tree) if _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_vocabulary_files_are_the_ports_own():
+    """The shipped vocabularies are copies inside the port, and no module
+    of the port builds a path into plvs_tpu/: no string constant outside a
+    docstring is "plvs_tpu" or starts with "plvs_tpu/"."""
+    data = ROOT / "plvs_tpu_torch" / "vocab" / "data"
+    for name in ("voc_100k.npz", "voc_10k.npz"):
+        assert (data / name).is_file(), name
+        assert (data / name).read_bytes() == (
+            ROOT / "plvs_tpu" / "vocab" / "data" / name).read_bytes()
+    from plvs_tpu_torch.slam import keyframe_database
+
+    default = pathlib.Path(keyframe_database._DEFAULT_VOCAB).resolve()
+    assert default.parent == data.resolve()
+    for path in (ROOT / "plvs_tpu_torch").rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                and n.body and isinstance(n.body[0], ast.Expr)}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs):
+                v = node.value.replace("\\", "/")
+                assert v != "plvs_tpu" and not v.startswith("plvs_tpu/"), (
+                    path, node.value)

@@ -125,8 +125,7 @@ def test_rgbd_dense_map_agrees(runs):
 
 def test_unsupported_settings_raise():
     cam = tcam.pinhole(*CAM_ARGS, **CAM_KW)
-    for kw in (dict(loop_closing=True),
-               dict(rectify=True), dict(dense_segmentation=True),
+    for kw in (dict(rectify=True), dict(dense_segmentation=True),
                dict(pipelined=True), dict(async_mapping=True),
                dict(use_imu=True), dict(sensor="mono")):
         with pytest.raises(NotImplementedError):
@@ -148,10 +147,17 @@ def test_cuda_requested_without_cuda_raises():
 
 
 def test_relocalization_is_not_ported():
-    """A lost tracker raises instead of relocalizing (no keyframe database
-    in this slice)."""
+    """Relocalization is ported now: a lost tracker tries the keyframe
+    database instead of raising, and a blank frame leaves it LOST
+    (tests/test_torch_relocalization.py holds the recovery against JAX)."""
     system = TSystem(tcam.pinhole(*CAM_ARGS, **CAM_KW), TConfig(**FLAGS),
                      device="cpu")
+    tex = tsyn.make_structured_texture(1024, rng=np.random.default_rng(7))
+    g, d = tsyn.SyntheticRGBD(tcam.pinhole(*CAM_ARGS, **CAM_KW), wall_z=3.0,
+                              texture=tex, tex_scale=220.0).render(
+        *tsyn.default_trajectory(36)[0])
+    assert system.track_rgbd(g, d, 0.0)[0] == OK
     system.tracker.state = LOST
-    with pytest.raises(NotImplementedError):
-        system.tracker.process_frame(None, 0.0)
+    state, _, _ = system.track_rgbd(np.zeros_like(g), np.zeros_like(d),
+                                    1 / 30)
+    assert state == LOST and system.tracker.lost_frames == 1
