@@ -1,10 +1,11 @@
 """Dense mapping orchestrator: per-keyframe depth, integration and meshing,
 and the rebuild after a loop closure.
 
-Counterpart of plvs_tpu/dense/mapping.py's ``DenseMapper`` for the
-synchronous path: per keyframe, stereo depth (kernel K3) or the RGB-D
-depth, the depth filter, TSDF integration and the budgeted incremental
-mesh, in the JAX package's order (``insert_stages``). Each keyframe's raw
+Counterpart of plvs_tpu/dense/mapping.py's ``DenseMapper``: per keyframe,
+stereo depth (kernel K3) or the RGB-D depth, the depth filter, TSDF
+integration and the budgeted incremental mesh, in the JAX package's order
+(``insert_stages``, a generator driven with a given fetch: inline, or the
+interleaved backend's helper threads). Each keyframe's raw
 depth and color stay on the device (``DenseKeyFrame``), and ``rebuild``
 resets the volume and the mesher and re-integrates every stored keyframe
 at its corrected pose. The multi-resolution far field (the coarse volume),
@@ -21,10 +22,11 @@ import torch
 
 from ..geometry import cameras as cam_mod
 from ..ops import resolve_device
+from ..utils.fetch import SyncFetch, to_host
 from . import processing
 from .meshing import IncrementalMesher, marching_tetrahedra
 from .stereo_depth import disparity, disparity_to_depth
-from .tsdf import TSDFVolume, to_host
+from .tsdf import TSDFVolume
 
 
 @dataclasses.dataclass
@@ -34,27 +36,6 @@ class DenseKeyFrame:
     kf_id: int
     depth: torch.Tensor   # [H, W] raw metric depth
     color: torch.Tensor   # [H, W] gray or [H, W, 3], as integrated
-
-
-class _LazyFuture:
-    """Future-compatible wrapper that fetches on .result() (the synchronous
-    path's stand-in for a helper-thread fetch)."""
-
-    def __init__(self, outs):
-        self._outs = outs
-
-    def result(self):
-        return to_host(self._outs)
-
-    def done(self):
-        return True
-
-
-class _SyncFetch:
-    """submit-compatible inline fetcher for the synchronous path."""
-
-    def __call__(self, outs):
-        return _LazyFuture(outs)
 
 
 # settings outside the ported slice -> (value that is in it, ROADMAP item)
@@ -168,7 +149,7 @@ class DenseMapper:
                         tcw: np.ndarray):
         """Run :meth:`insert_stages` to its end with inline fetches."""
         for _ in self.insert_stages(kind, kf_id, a, b, Rcw, tcw,
-                                    _SyncFetch()):
+                                    SyncFetch()):
             pass
 
     def rebuild(self, get_pose):

@@ -20,7 +20,8 @@ import contextlib
 import numpy as np
 import torch
 
-from .tsdf import BLOCK, TSDFVolume, to_host
+from ..utils.fetch import to_host
+from .tsdf import BLOCK, TSDFVolume
 
 # 6 tetrahedra per cube (corner indices into the cube's 8 corners).
 # Cube corners indexed bit-wise: bit0=x, bit1=y, bit2=z.

@@ -24,17 +24,11 @@ import torch
 
 from ..geometry import cameras as cam_mod
 from ..ops import resolve_device
+from ..utils.fetch import to_host
 
 BLOCK = 8  # voxels per block side
 MESH_W = 1.0  # IncrementalMesher min_weight default
 CHANGE_EPS = 0.01  # tsdf change that dirties a block (~sub-voxel shift)
-
-
-def to_host(x):
-    """Tensors (in nested tuples / lists) -> numpy arrays."""
-    if isinstance(x, (tuple, list)):
-        return type(x)(to_host(v) for v in x)
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
 
 
 def _next_bucket(n: int, floor: int, cap: int) -> int:

@@ -170,13 +170,21 @@ class KeyFrameDatabase:
         return self._inv
 
     # ------------------------------------------------------------------
-    def quantize(self, desc) -> np.ndarray:
-        """Word ids of [N, 8] descriptors (uint32 numpy, or int32 words on
-        a device), descended on the database's device."""
+    def dispatch_quantize(self, desc):
+        """Queue the tree descent of [N, 8] descriptors on the database's
+        device without reading it back: returns the device word ids (pass
+        them, fetched, as ``words``), or None without a vocabulary."""
+        if not self.ensure_vocab():
+            return None
         if not isinstance(desc, torch.Tensor):
             desc = torch.from_numpy(np.ascontiguousarray(
                 np.asarray(desc, np.uint32)).view(np.int32))
-        return bow.quantize(self.voc, desc.to(self.device)).cpu().numpy()
+        return bow.quantize(self.voc, desc.to(self.device))
+
+    def quantize(self, desc) -> np.ndarray:
+        """Word ids of [N, 8] descriptors (uint32 numpy, or int32 words on
+        a device), descended on the database's device."""
+        return self.dispatch_quantize(desc).cpu().numpy()
 
     def sparse_bow(self, desc: np.ndarray, mask: np.ndarray, words=None):
         """Quantize descriptors -> sparse L1-normalized tf-idf word list

@@ -20,11 +20,21 @@ Differences from the JAX package, all deliberate:
   the local BA is present even for fewer than 4 lines;
 * the mono map growth (``create_new_points`` and its
   ``triangulate_new_points`` switch, ROADMAP.md queue 1 item 7), the
-  abortable and staged backend (``abort_check``, ``submit`` /
-  ``extra_fetch``, ``process_keyframe_stages``, item 4), the inertial
-  culling gate (item 5) and the sharded global BA (``mesh``, item 8) are
-  not ported yet (``global_ba_dispatch`` is, synchronously), and
-  ``warm_ba_buckets`` has no counterpart (it precompiles XLA shapes).
+  inertial culling gate (item 5) and the sharded global BA (``mesh``,
+  item 8) are not ported yet, and ``warm_ba_buckets`` has no counterpart
+  (it precompiles XLA shapes);
+* a deferred write-back (the interleaved backend applies a solve frames
+  after its dispatch) skips landmark slots that were culled and reused in
+  between: the JAX package checks keyframe slots by identity but points
+  and lines only by liveness, and writes one landmark's solved position
+  into another (``_ba_apply``).
+
+The pass is staged as in the JAX package (``process_keyframe_stages``, a
+generator with two yields); ``process_keyframe`` drains it with inline
+fetches, and the System's interleaved backend steps it between frames with
+helper-thread fetches. With ``abort_check`` set (the mapper actor), the
+local BA runs in chunks of ``ba_chunk_iters`` LM iterations and stops after
+a chunk once the check is true.
 """
 
 from __future__ import annotations
@@ -41,18 +51,12 @@ from ..geometry import cameras as cam_mod
 from ..geometry import triangulation
 from ..ops import resolve_device
 from ..solvers import ba
+from ..utils.fetch import SyncFetch, to_host
 from .map_store import MapStore
 
 
 def _mv(R, x):
     return (R @ x[..., None])[..., 0]
-
-
-def _host(x):
-    """Device tensor(s) -> numpy (one device-to-host copy each)."""
-    if isinstance(x, (tuple, list)):
-        return type(x)(_host(v) for v in x)
-    return x.detach().cpu().numpy()
 
 
 def _stacked_hamming(d1: torch.Tensor, d2b: torch.Tensor) -> torch.Tensor:
@@ -125,6 +129,10 @@ class LocalMapper:
     use_lines: bool = False
     kfdb: object | None = None  # keyframe database to notify on culls
     stopwatch: object | None = None  # optional stage timing (.scope(name))
+    # polled between local-BA chunks (the mapper actor sets it): True
+    # stops the solve after the current chunk
+    abort_check: object | None = None
+    ba_chunk_iters: int = 3
     # line blocks of the local BA present even for < 4 lines (the JAX
     # package's fixed-shape backend includes them in the solve)
     fixed_shapes: bool = False
@@ -148,45 +156,81 @@ class LocalMapper:
             a = a.view(np.int32)
         return torch.from_numpy(a).to(self.device)
 
-    def process_keyframe(self, kf_id: int):
-        """The per-keyframe backend pass, in the JAX package's order: cull
-        points and lines; compute the line triangulation and the fuse
-        matches from the store as it stands, then apply lines, then fuse;
-        point maintenance (normals and scale range at once, the descriptor
-        vote computed now); the local BA and its write-back; the descriptor
-        vote applied; keyframe culling."""
+    def process_keyframe(self, kf_id: int, extra_fetch=None):
+        """The per-keyframe backend pass run to its end with inline fetches
+        (the drain of :meth:`process_keyframe_stages`); returns the fetched
+        ``extra_fetch``."""
+        gen = self.process_keyframe_stages(kf_id, extra_fetch=extra_fetch)
+        while True:
+            try:
+                next(gen)
+            except StopIteration as stop:
+                return stop.value
+
+    def process_keyframe_stages(self, kf_id: int, extra_fetch=None,
+                                submit=None):
+        """The per-keyframe backend pass as a generator, in the JAX
+        package's order: cull points and lines; dispatch the line
+        triangulation and the fuse matches from the store as it stands and
+        yield their fetch (with ``extra_fetch``, an unrelated device output
+        such as the keyframe's BoW words, fetched in the same future);
+        apply lines, then fuse; point maintenance (normals and scale range
+        at once, the descriptor vote dispatched); dispatch the local BA and
+        yield its fetch together with the vote's; apply the BA and the
+        vote; keyframe culling. ``submit`` (fn(outs) -> future) takes the
+        fetches; None fetches inline. Each ``yield`` hands the caller the
+        future it waits on (None when nothing was fetched), and the
+        generator's value is the fetched ``extra_fetch``."""
+        fetch = submit if submit is not None else SyncFetch()
         lock = self.store.lock
         with self._scope("lm.cull"), lock:
             self.cull_points(kf_id)
             if self.use_lines:
                 self.cull_lines(kf_id)
-        tri_ctx = None
-        if self.use_lines:
-            with self._scope("lm.tri_lines"), lock:
-                tri_ctx = self._dispatch_new_lines(kf_id)
-                tri_out = None if tri_ctx is None else _host(tri_ctx["out"])
-        with self._scope("lm.fuse"), lock:
+        with lock:
+            tri_ctx = (self._dispatch_new_lines(kf_id)
+                       if self.use_lines else None)
             fuse_ctx = self._dispatch_fuse(kf_id)
-            fuse_out = None if fuse_ctx is None else _host(fuse_ctx["out"])
+        outs = [c["out"] for c in (tri_ctx, fuse_ctx) if c is not None]
+        fut = (fetch((tuple(outs), extra_fetch))
+               if outs or extra_fetch is not None else None)
+        yield fut
+        extra_out = None
+        fetched = []
+        if fut is not None:
+            with self._scope("lm.await"):
+                got, extra_out = fut.result()
+            fetched = list(got)
         if tri_ctx is not None:
             with self._scope("lm.tri_lines"), lock:
-                self._apply_new_lines(kf_id, tri_ctx, tri_out)
+                self._apply_new_lines(kf_id, tri_ctx, fetched.pop(0))
         if fuse_ctx is not None:
             with self._scope("lm.fuse"), lock:
-                self._apply_fuse(kf_id, fuse_ctx, fuse_out)
+                self._apply_fuse(kf_id, fuse_ctx, fetched.pop(0))
         with self._scope("lm.maint"), lock:
             pts = self.store.kf_kp_pt[kf_id]
             maint_ctx = self.store.dispatch_point_maintenance(
                 np.unique(pts[pts >= 0]), scale=self.scale,
                 n_levels=self.n_levels, device=self.device)
         with self._scope("lm.ba"):
-            self.local_ba(kf_id)
-        if maint_ctx is not None:
-            with self._scope("lm.maint"), lock:
-                self.store.apply_point_maintenance(maint_ctx,
-                                                   _host(maint_ctx["out"]))
+            ba_ctx = self._ba_dispatch_local(kf_id)
+        maint_out = None if maint_ctx is None else maint_ctx["out"]
+        ba_out = None if ba_ctx is None else self.ba_outs(ba_ctx)
+        ba_fut = (fetch((ba_out, maint_out))
+                  if ba_ctx is not None or maint_ctx is not None else None)
+        yield ba_fut
+        if ba_fut is not None:
+            with self._scope("lm.ba" if ba_ctx is not None else "lm.await"):
+                solved, maint_fetched = ba_fut.result()
+                if ba_ctx is not None:
+                    self.ba_finish(ba_ctx, solved)
+            if maint_ctx is not None:
+                with self._scope("lm.maint"), lock:
+                    self.store.apply_point_maintenance(maint_ctx,
+                                                       maint_fetched)
         with self._scope("lm.cull_kf"), lock:
             self.cull_keyframes(kf_id)
+        return extra_out
 
     # ------------------------------------------------------------------
     def _dispatch_new_lines(self, kf_id: int, max_neighbors: int = 4,
@@ -256,7 +300,7 @@ class LocalMapper:
         covisible neighbours by plane-plane intersection."""
         ctx = self._dispatch_new_lines(kf_id, max_neighbors, reproj_thresh)
         if ctx is not None:
-            self._apply_new_lines(kf_id, ctx, _host(ctx["out"]))
+            self._apply_new_lines(kf_id, ctx, to_host(ctx["out"]))
 
     # ------------------------------------------------------------------
     def _dispatch_fuse(self, kf_id: int, max_neighbors: int = 5):
@@ -375,8 +419,8 @@ class LocalMapper:
     def global_ba_dispatch(self, map_id: int | None = None,
                            num_iters: int = 10):
         """Dispatch half of the global BA after a loop closure: every live
-        keyframe of the map (10 LM x 30 CG); pass the ctx to :meth:`_solve`
-        (or fetch its outs and :meth:`_ba_apply` them)."""
+        keyframe of the map (10 LM x 30 CG); pass the ctx to :meth:`_solve`,
+        or fetch its :meth:`ba_outs` and pass them to :meth:`ba_finish`."""
         st = self.store
         if map_id is None:
             map_id = st.active_map
@@ -393,8 +437,20 @@ class LocalMapper:
         """Fetch a dispatched solve (its only host read) and apply it."""
         if ctx is None:
             return None
-        solved = _host(ctx["outs"])
-        info = {k: _host(v).item() for k, v in ctx["info"].items()}
+        return self.ba_finish(ctx, to_host(self.ba_outs(ctx)))
+
+    @staticmethod
+    def ba_outs(ctx):
+        """What a dispatched solve's write-back fetches: the solved blocks
+        and the cost, and the solve's info."""
+        return ctx["outs"], ctx["info"]
+
+    def ba_finish(self, ctx, fetched):
+        """Write-back half of a dispatched solve from its fetched
+        :meth:`ba_outs`: log the info, apply the blocks under the store
+        lock; returns the info."""
+        solved, info = fetched
+        info = {k: np.asarray(v).item() for k, v in info.items()}
         info["window"] = ctx["cams"][: ctx["K"]].tolist()
         self.ba_log.append(info)
         with self.store.lock:
@@ -405,49 +461,68 @@ class LocalMapper:
                      cg_iters: int = 30):
         """Dispatch half of the windowed LM solve: snapshot the window,
         queue every LM iteration on the device, return a ctx whose "outs"
-        are the solved blocks and the cost."""
+        are the solved blocks and the cost. With ``abort_check`` set the
+        iterations run in chunks of ``ba_chunk_iters`` (each chunk a fresh
+        LM from the last one's blocks, as in the JAX package), and the
+        solve stops after a chunk once the check is true."""
         with self.store.lock:
             packed = self._gather_ba(window)
-        if packed is None:
-            return None
-        prob, cams, pts, lns, fixed_mask, K = packed
-        R, t, p, lXs, lXe, info = ba.bundle_adjust(
-            self.cam, prob, num_iters=num_iters, cg_iters=cg_iters)
-        return {"outs": (R, t, p, lXs, lXe, info["cost"]), "info": info,
+            if packed is None:
+                return None
+            prob, cams, pts, lns, fixed_mask, K = packed
+            st = self.store
+            # slot identity at dispatch: an apply must not write a slot
+            # culled and reused by another keyframe or landmark in between
+            ident = {"cam_fid": st.kf_frame_id[cams].copy(),
+                     "pt_gen": st.pt_gen[pts].copy(),
+                     "ln_gen": st.ln_gen[lns].copy()}
+        done, infos = 0, []
+        while done < num_iters:
+            it = (num_iters - done if self.abort_check is None
+                  else min(self.ba_chunk_iters, num_iters - done))
+            R, t, p, lXs, lXe, info = ba.bundle_adjust(
+                self.cam, prob, num_iters=it, cg_iters=cg_iters)
+            prob = prob._replace(R=R, t=t, points=p, lines_Xs=lXs,
+                                 lines_Xe=lXe)
+            infos.append(info)
+            done += it
+            if self.abort_check is not None and self.abort_check():
+                break
+        if len(infos) > 1:
+            info = dict(info, cost0=infos[0]["cost0"])
+            for k in ("lm_iters", "cg_iters"):
+                if k in info:
+                    info[k] = sum(i[k] for i in infos)
+        return {"outs": (prob.R, prob.t, prob.points, prob.lines_Xs,
+                         prob.lines_Xe, info["cost"]), "info": info,
                 "cams": cams, "pts": pts, "lns": lns, "fixed": fixed_mask,
-                "K": K,
-                # slot identity at dispatch: an apply must not write a slot
-                # culled and reused by another keyframe in between
-                "cam_fid": self.store.kf_frame_id[cams].copy()}
+                "K": K, **ident}
 
     def _ba_apply(self, ctx, solved):
         """Apply half: write the solved blocks back (caller holds the store
-        lock). A non-finite cost applies nothing."""
+        lock). A non-finite cost applies nothing. Slots whose identity
+        changed since the dispatch are left alone: a keyframe slot culled
+        and reused (its frame id), a point or line slot culled and
+        reallocated to another landmark (its generation)."""
         Rn, tn, pn, lXs, lXe, cost = solved
         if not np.isfinite(float(cost)):
             return
         fixed = ctx["fixed"]
         st = self.store
-        cams = ctx["cams"]
+        cams, pts, lns, K = ctx["cams"], ctx["pts"], ctx["lns"], ctx["K"]
         stale = (~st.kf_mask[cams]) | (st.kf_frame_id[cams] != ctx["cam_fid"])
         if stale.any():
             fixed = fixed | stale
             if fixed.all():
                 return
-        self._apply_ba((Rn, tn, pn, lXs, lXe), cams, ctx["pts"], ctx["lns"],
-                       fixed, ctx["K"])
-
-    def _apply_ba(self, fetched, cams, pts, lns, fixed_mask, K):
-        st = self.store
-        Rn, tn, pn, lXs, lXe = fetched
-        free = ~fixed_mask
+        free = ~fixed
         st.kf_R[cams[free]] = Rn[:K][free]
         st.kf_t[cams[free]] = tn[:K][free]
-        alive = st.pt_mask[pts]
+        alive = st.pt_mask[pts] & (st.pt_gen[pts] == ctx["pt_gen"])
         st.version += 1
         st.pt_xyz[pts[alive]] = pn[: len(pts)][alive]
         if len(lns):
-            lalive = st.ln_mask[lns]
+            lalive = st.ln_mask[lns] & (st.ln_gen[lns] == ctx["ln_gen"])
             st.ln_Xs[lns[lalive]] = lXs[: len(lns)][lalive]
             st.ln_Xe[lns[lalive]] = lXe[: len(lns)][lalive]
 

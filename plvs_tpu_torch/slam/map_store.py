@@ -195,6 +195,9 @@ class MapStore:
         self.pt_n_obs = np.zeros((P,), np.int32)
         self.pt_visible = np.zeros((P,), np.int32)
         self.pt_found = np.zeros((P,), np.int32)
+        # slot generation, bumped at each allocation: a solve dispatched
+        # before a cull writes back only to slots still holding its landmark
+        self.pt_gen = np.zeros((P,), np.int64)
         self.obs_kf = np.zeros((O,), np.int64)
         self.obs_pt = np.zeros((O,), np.int64)
         self.obs_kp = np.zeros((O,), np.int64)
@@ -209,6 +212,7 @@ class MapStore:
         self.ln_n_obs = np.zeros((Lm,), np.int32)
         self.ln_visible = np.zeros((Lm,), np.int32)
         self.ln_found = np.zeros((Lm,), np.int32)
+        self.ln_gen = np.zeros((Lm,), np.int64)
         self.kf_kl_sp = np.zeros((K, Nl, 2), np.float32)
         self.kf_kl_ep = np.zeros((K, Nl, 2), np.float32)
         self.kf_kl_desc = np.zeros((K, Nl, 8), np.uint32)
@@ -257,7 +261,7 @@ class MapStore:
         new = self.max_pts * 2
         for name in ("pt_xyz", "pt_desc", "pt_normal", "pt_min_dist",
                      "pt_max_dist", "pt_angle", "pt_mask", "pt_n_obs",
-                     "pt_visible", "pt_found"):
+                     "pt_visible", "pt_found", "pt_gen"):
             setattr(self, name, self._grown(getattr(self, name), new))
         self.pt_ref_kf = self._grown(self.pt_ref_kf, new, fill=-1)
         self.pt_first_kf = self._grown(self.pt_first_kf, new, fill=-1)
@@ -266,7 +270,7 @@ class MapStore:
     def _grow_lines(self):
         new = self.max_lines * 2
         for name in ("ln_Xs", "ln_Xe", "ln_desc", "ln_mask", "ln_n_obs",
-                     "ln_visible", "ln_found"):
+                     "ln_visible", "ln_found", "ln_gen"):
             setattr(self, name, self._grown(getattr(self, name), new))
         self.ln_ref_kf = self._grown(self.ln_ref_kf, new, fill=-1)
         self.ln_first_kf = self._grown(self.ln_first_kf, new, fill=-1)
@@ -368,13 +372,14 @@ class MapStore:
         free = np.nonzero(~self.pt_mask[: self._n_pt])[0][:n]
         need = n - len(free)
         self.version += 1
-        if need <= 0:
-            return free
-        while self._n_pt + need > self.max_pts:
-            self._grow_points()
-        fresh = np.arange(self._n_pt, self._n_pt + need)
-        self._n_pt += need
-        return np.concatenate([free, fresh])
+        if need > 0:
+            while self._n_pt + need > self.max_pts:
+                self._grow_points()
+            fresh = np.arange(self._n_pt, self._n_pt + need)
+            self._n_pt += need
+            free = np.concatenate([free, fresh])
+        self.pt_gen[free] += 1
+        return free
 
     def add_observations(self, kf: int, pt_ids: np.ndarray, kp_ids: np.ndarray):
         n = len(pt_ids)
@@ -409,13 +414,14 @@ class MapStore:
         free = np.nonzero(~self.ln_mask[: self._n_ln])[0][:n]
         need = n - len(free)
         self.version += 1
-        if need <= 0:
-            return free
-        while self._n_ln + need > self.max_lines:
-            self._grow_lines()
-        fresh = np.arange(self._n_ln, self._n_ln + need)
-        self._n_ln += need
-        return np.concatenate([free, fresh])
+        if need > 0:
+            while self._n_ln + need > self.max_lines:
+                self._grow_lines()
+            fresh = np.arange(self._n_ln, self._n_ln + need)
+            self._n_ln += need
+            free = np.concatenate([free, fresh])
+        self.ln_gen[free] += 1
+        return free
 
     def add_line_observations(self, kf: int, line_ids: np.ndarray,
                               kl_ids: np.ndarray):

@@ -1,5 +1,5 @@
-"""System facade for synchronous RGB-D and rectified-stereo SLAM with
-points and lines, loop closing, relocalization and dense TSDF mapping.
+"""System facade for RGB-D and rectified-stereo SLAM with points and
+lines, loop closing, relocalization and dense TSDF mapping.
 
 Counterpart of plvs_tpu/slam/system.py for the ported slices:
 ``SystemConfig`` keeps every field and default of the JAX package, and the
@@ -7,20 +7,42 @@ settings whose machinery is not ported yet raise ``NotImplementedError``
 naming the ROADMAP.md item that ports them — none of them gets a stand-in.
 New map points and line landmarks come from depth at every keyframe. The
 keyframe database (place recognition) is always built: relocalization
-needs it. After each keyframe the synchronous backend runs inline, as the
-JAX package's does: with ``local_ba`` the local mapper (culling, line
-triangulation, fuse, landmark maintenance, the windowed local BA, keyframe
-culling), then with ``dense_mapping`` the dense stage (depth — from stereo
-through kernel K3 on the stereo path —, filter, TSDF integration and the
-incremental mesh) at the keyframe's adjusted pose, then with
-``loop_closing`` the loop closer (else the keyframe is only indexed). A
-closed loop is followed by the global BA (``global_ba_on_loop`` with
-``local_ba``) and the dense map's rebuild at the corrected poses. The
-tracker then continues from the keyframe's stored pose.
+needs it.
+
+The per-keyframe backend is ``_backend_stages``, a generator: with
+``local_ba`` the local mapper (culling, line triangulation, fuse, landmark
+maintenance, the windowed local BA, keyframe culling), then with
+``dense_mapping`` the dense stage (depth — from stereo through kernel K3 on
+the stereo path —, filter, TSDF integration and the incremental mesh) at
+the keyframe's adjusted pose, then with ``loop_closing`` the loop closer
+(else the keyframe is only indexed). A closed loop is followed by the
+global BA (``global_ba_on_loop`` with ``local_ba``: dispatched, yielded,
+applied) and the dense map's rebuild at the corrected poses. It runs one of
+three ways, as in the JAX package:
+
+* synchronously, drained after each keyframe (``pipelined=False``, or
+  ``interleaved_backend=False``); the tracker then continues from the
+  keyframe's stored pose;
+* interleaved (``pipelined`` with ``interleaved_backend``): a FIFO of
+  keyframe generators whose head advances one stage at a time between
+  frames, its fetches waited on by two helper threads; a stage resumes when
+  its fetch is done or after ``BACKEND_STAGE_DEADLINE`` polls, the backlog
+  is held to ``MAX_BACKEND_BACKLOG`` by forced steps, and a loop correction
+  is folded into the tracker's pose when its keyframe finishes;
+* on the mapper actor's thread (``async_mapping``,
+  ``slam/async_runtime.py``).
+
+With ``pipelined`` the tracker resolves frames late (``slam/tracking.py``):
+``track_rgbd`` / ``track_stereo`` return the motion model's pose, the
+trajectory records the resolved poses, and ``_finish_frame`` bounds the
+window by the observed rotation rate. ``flush()`` settles everything;
+the trajectory exports, ``time_stats`` and ``shutdown`` call it. All
+device work goes to the device's default stream, shared by every thread.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional
 
@@ -31,6 +53,7 @@ from ..dense.mapping import DenseMapper
 from ..geometry import cameras as cam_mod
 from ..geometry import lie
 from ..ops import resolve_device
+from ..utils.fetch import HelperFetch, SyncFetch, to_host
 from ..utils.profiling import Stopwatch
 from ..vocab import bow
 from . import frame as frame_mod
@@ -104,8 +127,6 @@ class SystemConfig:
 # settings outside this slice -> (value that is in the slice, ROADMAP item)
 _NOT_IN_SLICE = {
     "dense_segmentation": (False, "queue 1 item 7, segmentation"),
-    "pipelined": (False, "queue 1 item 4, pipelined runtime"),
-    "async_mapping": (False, "queue 1 item 4, pipelined runtime"),
     "use_imu": (False, "queue 1 item 5, inertial"),
     "rectify": (False, "queue 1 item 6, stereo rectification"),
     "sharded_backend": (False, "queue 1 item 8, multi-device"),
@@ -114,8 +135,17 @@ _NOT_IN_SLICE = {
 
 
 class System:
-    """RGB-D / rectified-stereo SLAM on one device (synchronous, optional
-    keyframe backend and dense mapping)."""
+    """RGB-D / rectified-stereo SLAM on one device (optional keyframe
+    backend, loop closing, dense mapping, deferred resolution and the
+    interleaved or threaded backend)."""
+
+    # interleaved backend: queued keyframe generators beyond this force
+    # catch-up steps (see _enqueue_backend)
+    MAX_BACKEND_BACKLOG = 2
+    # a stage whose fetch is still pending after this many _step_backend
+    # polls (2 per frame) is resumed anyway, blocking on the fetch: stage
+    # advancement is gated on the frame count, not on wall time
+    BACKEND_STAGE_DEADLINE = 10
 
     def __init__(self, cam: cam_mod.Camera, config: SystemConfig | None = None,
                  device: str | torch.device = "cuda", cam2=None, T_c1_c2=None):
@@ -157,6 +187,12 @@ class System:
         tr.max_keylines = c.max_lines
         tr.depth_decimation = c.depth_upload_decimation
         tr.fixed_shapes = c.backend_fixed_shapes
+        tr.pipelined = c.pipelined
+        tr.pipeline_depth = max(1, c.pipeline_depth)
+        tr.overlap_fetch = c.pipeline_overlap
+        tr.on_resolved = self._on_resolved
+        # dense payloads of queued frames, by the tracker's frame counter
+        self._pending_payloads = {}
         self.local_mapper = LocalMapper(
             cam, self.store, scale=c.scale, n_levels=c.n_levels,
             use_lines=c.use_lines, kfdb=self.kfdb,
@@ -170,6 +206,12 @@ class System:
             self.dense_mapper = DenseMapper(
                 cam, voxel_size=c.dense_voxel_size,
                 mesh_every=c.dense_mesh_every, device=self.device)
+        # interleaved backend: the FIFO of staged keyframe generators, why
+        # each stage advanced (fetch done / deadline / forced catch-up), and
+        # the helper threads that wait on the stages' fetches
+        self._backend_q = collections.deque()
+        self._stage_stats = {"ready": 0, "deadline": 0, "forced": 0}
+        self._backend_pool = None
         # per-stage timing (host clock; no synchronisation unless the
         # caller installs a stopwatch with a sync device)
         self.set_stopwatch(Stopwatch())
@@ -177,6 +219,11 @@ class System:
         # (timestamp, ref_kf_uid, R_rel, t_rel): T_frame_w = T_rel * T_ref_w,
         # so the export follows any later change of the keyframe poses
         self._traj_rel = []
+        self.actor = None
+        if c.async_mapping:
+            from .async_runtime import MapperActor
+
+            self.actor = MapperActor(self)
 
     def set_stopwatch(self, stopwatch: Stopwatch):
         """Time the system's stages, the local mapper's and the dense
@@ -190,7 +237,8 @@ class System:
 
     def time_stats(self) -> dict:
         """Per-stage timing statistics (mean / std / median / total ms and
-        count per stage over the run)."""
+        count per stage over the run), after a flush."""
+        self.flush()
         return self.stopwatch.stats()
 
     def _build_frames(self, gray: np.ndarray, depth: np.ndarray):
@@ -215,6 +263,9 @@ class System:
         if imu_samples is not None:
             raise NotImplementedError(
                 "imu_samples: the inertial path is ROADMAP.md queue 1 item 5")
+        if self.actor is not None:
+            self.actor.apply_pending_correction()
+        self._resolve_pipeline()
         res = None
         if self.tracker.state == OK:
             planes = _pack_rgbd(gray, depth, self.config.depth_upload_decimation)
@@ -228,7 +279,7 @@ class System:
             with self.stopwatch.scope("track"):
                 res = self.tracker.process_frame(fr, timestamp, fl)
         payload = ("rgbd", gray, depth) if self.dense_mapper else None
-        return self._post_track(res, timestamp, payload)
+        return self._finish_frame(res, timestamp, payload)
 
     def track_stereo(self, gray_l: np.ndarray, gray_r: np.ndarray,
                      timestamp: float, imu_samples=None):
@@ -238,6 +289,9 @@ class System:
         if imu_samples is not None:
             raise NotImplementedError(
                 "imu_samples: the inertial path is ROADMAP.md queue 1 item 5")
+        if self.actor is not None:
+            self.actor.apply_pending_correction()
+        self._resolve_pipeline()
         c = self.config
         gl = torch.from_numpy(np.asarray(gray_l, np.float32)).to(self.device)
         gr = torch.from_numpy(np.asarray(gray_r, np.float32)).to(self.device)
@@ -246,13 +300,70 @@ class System:
         fl = (frame_mod.build_frame_lines_stereo(gl, gr, self.cam,
                                                  c.max_lines)
               if c.use_lines else None)
-        res = self.tracker.process_frame(fr, timestamp, fl)
+        with self.stopwatch.scope("track"):
+            res = self.tracker.process_frame(fr, timestamp, fl)
         payload = ("stereo", gl, gr) if self.dense_mapper else None
-        return self._post_track(res, timestamp, payload)
+        return self._finish_frame(res, timestamp, payload)
+
+    # -- deferred resolution ----------------------------------------------
+    def _on_resolved(self, res, ts: float, seq=None):
+        """Tracker callback: a queued frame resolved; run its post-track
+        path with the dense payload kept under its frame counter."""
+        self._post_track(res, ts, self._pending_payloads.pop(seq, None))
+
+    def _resolve_pipeline(self, force: bool = False):
+        """Resolve the queued frames when the window is full (or on
+        ``force``, which also settles the interleaved backend)."""
+        with self.stopwatch.scope("resolve"):
+            self.tracker.resolve_batch(force=force)
+        if force:
+            self._drain_backend()
+
+    def flush(self):
+        """Finish every queued frame and backend stage (the end of a
+        sequence; the trajectory exports and ``shutdown`` call it)."""
+        self._resolve_pipeline(force=True)
+        self._drain_backend()
+        if self.actor is not None:
+            self.actor.wait_idle(60.0)
+
+    def _finish_frame(self, res, timestamp: float, dense_payload=None):
+        """Route a Track* result: provisional (the frame is queued) or final
+        (its post-track path runs now). Two interleaved-backend stages run
+        per frame, after the frame's own dispatch."""
+        tr = self.tracker
+        if tr._pending:
+            self._pending_payloads[tr._pending[-1]["seq"]] = dense_payload
+            # the window extrapolates the motion model up to its depth;
+            # bound it by the observed rotation rate, and resolve every
+            # frame while the motion model is cold
+            if tr._vel_warm < 3:
+                eff_depth, force = 1, True
+            else:
+                ang = float(np.arccos(np.clip(
+                    (np.trace(tr.vel_R) - 1.0) * 0.5, -1.0, 1.0)))
+                if ang > 0.10:
+                    eff_depth, force = 1, True
+                elif ang > 0.03:
+                    # launch every frame, the newest group left in flight
+                    eff_depth, force = 1, False
+                else:
+                    eff_depth, force = tr.pipeline_depth, False
+            if len(tr._pending) >= eff_depth:
+                with self.stopwatch.scope("resolve"):
+                    tr.resolve_batch(force=force, dispatch_at=eff_depth)
+            self._step_backend()
+            self._step_backend()
+            return res.state, res.R, res.t
+        out = self._post_track(res, timestamp, dense_payload)
+        self._step_backend()
+        self._step_backend()
+        return out
 
     def _post_track(self, res, timestamp: float, dense_payload=None):
-        """Common tail of every Track* entry point; on a keyframe, the dense
-        stage runs inline."""
+        """Common tail of every resolved frame: the trajectory entries and,
+        on a keyframe, the backend (on the actor, queued on the interleaved
+        backend, or inline)."""
         st = self.store
         ref = self.tracker.ref_kf
         with st.lock:
@@ -266,40 +377,87 @@ class System:
                 self._traj_rel.append((timestamp, -1, res.R.copy(),
                                        res.t.copy()))
         if res.is_keyframe and res.kf_id >= 0:
-            self._backend_keyframe(res.kf_id, dense_payload)
-            # keep the tracker's pose consistent with the adjusted keyframe
-            self.tracker.R = st.kf_R[res.kf_id].copy()
-            self.tracker.t = st.kf_t[res.kf_id].copy()
+            if self.actor is not None:
+                self.actor.insert_keyframe(res.kf_id, dense_payload)
+            elif self._interleaved:
+                self._enqueue_backend(res.kf_id, dense_payload)
+            else:
+                self._backend_keyframe(res.kf_id, dense_payload)
+                # keep the tracker's pose consistent with the adjusted
+                # keyframe
+                self.tracker.R = st.kf_R[res.kf_id].copy()
+                self.tracker.t = st.kf_t[res.kf_id].copy()
         self.trajectory.append((timestamp, res.R.copy(), res.t.copy()))
         return res.state, res.R, res.t
 
+    # -- the per-keyframe backend -----------------------------------------
     def _backend_keyframe(self, kf_id: int, dense_payload=None):
-        """The synchronous per-keyframe backend: the local mapper, the dense
-        stage at the keyframe's pose after bundle adjustment, then the loop
-        closer (or the keyframe database alone); after a closure the global
-        BA and the dense rebuild."""
+        """The backend of one keyframe run to its end with inline fetches
+        (the drain of :meth:`_backend_stages`); returns the loop's info or
+        None."""
+        gen = self._backend_stages(kf_id, dense_payload)
+        while True:
+            try:
+                next(gen)
+            except StopIteration as stop:
+                return stop.value
+
+    def _backend_stages(self, kf_id: int, dense_payload=None, submit=None):
+        """The per-keyframe backend as a generator: the local mapper's
+        stages, the dense stage at the keyframe's pose after bundle
+        adjustment, then the loop closer (or the keyframe database alone);
+        after a closure the global BA (dispatched, yielded, applied) and
+        the dense rebuild. Each ``yield`` hands the caller the future the
+        next stage waits on. ``submit`` (fn(outs) -> future) takes the
+        fetches; None fetches inline. The keyframe's BoW descent is queued
+        first and rides the local mapper's first fetch."""
+        fetch = submit if submit is not None else SyncFetch()
         st = self.store
+        words_out = (self.kfdb.dispatch_quantize(st.kf_kp_desc[kf_id])
+                     if self.loop_closer is not None else None)
+        words = None
         if self.config.local_ba:
-            with self.stopwatch.scope("local_mapping"):
-                self.local_mapper.process_keyframe(kf_id)
+            lm_gen = self.local_mapper.process_keyframe_stages(
+                kf_id, extra_fetch=words_out, submit=submit)
+            while True:
+                try:
+                    with self.stopwatch.scope("local_mapping"):
+                        wait = next(lm_gen)
+                except StopIteration as stop:
+                    words = stop.value
+                    break
+                yield wait
+        elif words_out is not None:
+            words = to_host(words_out)
         if self.dense_mapper is not None and dense_payload is not None:
             kind, a, b = dense_payload
-            with self.stopwatch.scope("dense_mapping"):
-                self.dense_mapper.insert_keyframe(kind, kf_id, a, b,
-                                                  st.kf_R[kf_id],
-                                                  st.kf_t[kf_id])
+            d_gen = self.dense_mapper.insert_stages(
+                kind, kf_id, a, b, st.kf_R[kf_id], st.kf_t[kf_id], fetch)
+            while True:
+                try:
+                    with self.stopwatch.scope("dense_mapping"):
+                        wait = next(d_gen)
+                except StopIteration:
+                    break
+                yield wait
         if self.loop_closer is None:
             self.kfdb.add(kf_id)
             return None
         with self.stopwatch.scope("loop_closing"):
-            info = self.loop_closer.process_keyframe(kf_id)
+            info = self.loop_closer.process_keyframe(kf_id, words=words)
         if info is None:
             return None
         self.loops_closed.append((kf_id, info))
         if self.config.global_ba_on_loop and self.config.local_ba:
+            lm = self.local_mapper
             with self.stopwatch.scope("global_ba"):
-                info["global_ba"] = self.local_mapper._solve(
-                    self.local_mapper.global_ba_dispatch())
+                gctx = lm.global_ba_dispatch()
+            info["global_ba"] = None
+            if gctx is not None:
+                gfut = fetch(lm.ba_outs(gctx))
+                yield gfut
+                with self.stopwatch.scope("global_ba"):
+                    info["global_ba"] = lm.ba_finish(gctx, gfut.result())
         if self.dense_mapper is not None:
             with self.stopwatch.scope("dense.rebuild"):
                 self.dense_mapper.rebuild(
@@ -307,10 +465,116 @@ class System:
                     if st.kf_mask[k] else (None, None))
         return info
 
+    # -- the interleaved backend -------------------------------------------
+    @property
+    def _interleaved(self) -> bool:
+        return (self.config.interleaved_backend and self.actor is None
+                and self.config.pipelined)
+
+    def _submit_backend_fetch(self, outs):
+        """Hand a stage's fetch to the two backend helper threads (the mesh
+        gather and the local BA are independent; one thread would
+        serialize them)."""
+        if self._backend_pool is None:
+            self._backend_pool = HelperFetch(self.device, 2,
+                                             "plvs-backend-fetch")
+        return self._backend_pool(outs)
+
+    def _ref_snapshot(self):
+        st = self.store
+        ref = self.tracker.ref_kf
+        with st.lock:
+            if 0 <= ref < st.max_kf and st.kf_mask[ref]:
+                return ref, st.kf_R[ref].copy(), st.kf_t[ref].copy()
+        return None
+
+    def _enqueue_backend(self, kf_id: int, dense_payload=None):
+        """Queue the staged backend of a new keyframe. Generators run
+        strictly in keyframe order (only the head is stepped); a backlog
+        beyond MAX_BACKEND_BACKLOG forces catch-up steps."""
+        gen = self._backend_stages(kf_id, dense_payload,
+                                   submit=self._submit_backend_fetch)
+        self._backend_q.append({"gen": gen, "wait": None, "age": 0,
+                                "snap": (self._ref_snapshot(),
+                                         len(self.loops_closed))})
+        while len(self._backend_q) > self.MAX_BACKEND_BACKLOG:
+            self._step_backend(force=True)
+        self._step_backend()
+
+    def _step_backend(self, force: bool = False):
+        """Run one stage of the FIFO head. A stage whose fetch is not done
+        is left until the next poll, unless ``force`` or its deadline."""
+        if not self._backend_q:
+            return
+        head = self._backend_q[0]
+        w = head["wait"]
+        if w is not None and not force and not w.done():
+            head["age"] += 1
+            if head["age"] < self.BACKEND_STAGE_DEADLINE:
+                return
+            self._stage_stats["deadline"] += 1
+        elif w is not None and force and not w.done():
+            self._stage_stats["forced"] += 1
+        else:
+            self._stage_stats["ready"] += 1
+        head["age"] = 0
+        head["wait"] = None
+        try:
+            head["wait"] = next(head["gen"])
+        except StopIteration:
+            if self._backend_q and self._backend_q[0] is head:
+                self._backend_q.popleft()
+            self._fold_backend_correction(head["snap"])
+
+    def _drain_backend(self):
+        while self._backend_q:
+            self._step_backend(force=True)
+
+    def _fold_backend_correction(self, snap_entry):
+        """A loop closure during the staged backend moved the map under the
+        tracker: fold T_ref_old^-1 * T_ref_new into the tracker's pose (the
+        scheme of MapperActor.apply_pending_correction), then re-snapshot
+        the queued keyframes so later folds measure later corrections
+        only."""
+        snap, n_loops = snap_entry
+        if snap is None or len(self.loops_closed) <= n_loops:
+            return
+        ref, R_old, t_old = snap
+        st = self.store
+        with st.lock:
+            if not st.kf_mask[ref]:
+                return
+            R_new, t_new = st.kf_R[ref].copy(), st.kf_t[ref].copy()
+        dR = R_old.T @ R_new
+        dt = R_old.T @ (t_new - t_old)
+        tr = self.tracker
+        R_f, t_f = tr.R, tr.t
+        tr.R = (R_f @ dR).astype(np.float32)
+        tr.t = (R_f @ dt + t_f).astype(np.float32)
+        self._refresh_backend_snaps()
+
+    def _refresh_backend_snaps(self):
+        snap = self._ref_snapshot()
+        for entry in self._backend_q:
+            entry["snap"] = (snap, len(self.loops_closed))
+
+    def shutdown(self):
+        """Finish the session: settle every queued frame and stage, stop the
+        mapper actor and the helper threads."""
+        self.flush()
+        if self.actor is not None:
+            self.actor.shutdown()
+        for pool in (self._backend_pool, self.tracker._fetch_pool):
+            if pool is not None:
+                pool.shutdown()
+        self._backend_pool = self.tracker._fetch_pool = None
+
     def retro_trajectory(self):
         """(ts, R_cw, t_cw) per frame, reconstructed through the current
         keyframe poses (through the tombstones of culled keyframes); frames
-        without a reference keyframe keep their tracked pose."""
+        without a reference keyframe keep their tracked pose. Flushes
+        first."""
+        self.flush()
         out = []
         st = self.store
         with st.lock:

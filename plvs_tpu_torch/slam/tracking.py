@@ -27,14 +27,27 @@ through K1, a 3D-3D RANSAC on the frame's depth, then a local-map match of
 the candidate's window), and ``new_map_after_lost`` lost frames on a mature
 map start a new map of the atlas. The relocalization RANSAC draws from a
 ``torch.Generator`` seeded 7 (the JAX package's ``PRNGKey(7)``). The
-monocular branch of relocalization (PnP), the monocular initializer, IMU
-coasting and the deferred (pipelined) resolution are not in the ported
-slices.
+monocular branch of relocalization (PnP), the monocular initializer and IMU
+coasting are not in the ported slices.
+
+Deferred resolution (``pipelined``), as in the JAX package: a tracked frame
+is queued and answered with the motion model's pose, extrapolated across
+the frames still unresolved; ``resolve_batch`` launches the queued frames
+once ``pipeline_depth`` of them wait and hands each result to
+``on_resolved``. On the fast path a frame's program is launched only then:
+the window's quantized images and candidate rows are stacked into one host
+tensor, moved to the device with one copy, and each frame's program runs on
+its row. With ``overlap_fetch`` the window's read-back is waited on by a
+helper thread (``utils/fetch.py``) and the newest group may stay in flight
+until the next drain. The candidate tables a queued frame uses are a
+snapshot taken when it was assembled (copied on the CPU too, where a tensor
+made from a numpy array shares its memory).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -46,6 +59,8 @@ from ..geometry import cameras as cam_mod
 from ..geometry import lie
 from ..ops import resolve_device
 from ..solvers import pose_opt, sim3_solver
+from ..utils.fetch import HelperFetch
+from ..utils.fetch import to_host as fetch_to_host
 from . import frame as frame_mod
 from .map_store import MapStore
 
@@ -384,6 +399,17 @@ class Tracker:
         self.cam = cam
         self.store = store
         self._tbl_cache = None  # device-resident landmark tables
+        # deferred resolution (set by the System): queued frames, launched
+        # groups [(group, future | None, outs)] and the helper-thread
+        # fetcher; each resolved frame goes to on_resolved
+        self.pipelined = False
+        self.pipeline_depth = 1
+        self._pending = []
+        self.overlap_fetch = False
+        self._inflight = []
+        self._fetch_pool = None
+        self.on_resolved = None
+        self.timing = None  # optional list of (fetch_s, finish_s, n)
         self.fixed_shapes = False
         self.num_features = num_features
         self.local_pts_cap = local_pts_cap
@@ -432,9 +458,21 @@ class Tracker:
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
+    def _snapshot(self, a) -> torch.Tensor:
+        """A device copy of store rows that later store writes leave
+        alone: on the CPU ``_t`` would share the numpy array's memory, and
+        a frame launched frames after its assembly would read the changed
+        rows."""
+        t = self._t(a)
+        return t.clone() if t.device.type == "cpu" else t
+
     # ------------------------------------------------------------------
     def process_frame(self, fr: frame_mod.Frame, timestamp: float,
                       fl=None) -> TrackResult:
+        if (self._pending or self._inflight) and self.state != OK:
+            # queued frames are outstanding while the state left OK: finish
+            # them first
+            self.resolve_batch(force=True)
         if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
             res = self._initialize_depth(fr, timestamp, fl)
         elif self.state == RECENTLY_LOST:
@@ -467,6 +505,9 @@ class Tracker:
         frame initializes it."""
         self.store.create_map()
         self.maps_created += 1
+        self._reset_tracking()
+
+    def _reset_tracking(self):
         self.state = NOT_INITIALIZED
         self.R = np.eye(3, dtype=np.float32)
         self.t = np.zeros(3, np.float32)
@@ -479,12 +520,31 @@ class Tracker:
         self.lost_frames = 0
         self.last_kp_pt_id = None
 
+    def reset_state(self):
+        """Back to the pre-initialization state without touching the map;
+        queued frames are resolved first (dropped only when that fails)."""
+        if self._pending or self._inflight:
+            try:
+                self.resolve_batch(force=True)
+            except Exception:
+                pass
+        self._pending = []
+        self._inflight = []
+        self._reset_tracking()
+        self._kf_fov_center.clear()
+
     def _relocalize(self, fr: frame_mod.Frame, timestamp: float) -> TrackResult:
         """Recover a lost frame against the keyframe database: candidates
         of the active map, descriptor matches to each (K1), a 3D-3D SE3
         RANSAC from the frame's back-projected keypoints to the matched
         landmarks, then a local-map match of the candidate's window from
-        that pose; the first candidate with 30 inliers wins."""
+        that pose; the first candidate with 30 inliers wins. Runs under
+        the store's lock."""
+        with self.store.lock:
+            return self._relocalize_locked(fr, timestamp)
+
+    def _relocalize_locked(self, fr: frame_mod.Frame,
+                           timestamp: float) -> TrackResult:
         st = self.store
         empty = np.full((fr.kp.xy.shape[0],), -1, np.int64)
         if self.kfdb is None:
@@ -567,9 +627,22 @@ class Tracker:
     # ------------------------------------------------------------------
     def _assemble_fused(self, use_pl: bool):
         """Candidates + motion-model prediction for the fused program, or
-        None when there is nothing to match yet."""
-        t_pred = (self.vel_R @ self.t + self.vel_t).astype(np.float32)
-        R_pred = (self.vel_R @ self.R).astype(np.float32)
+        None when there is nothing to match yet. The prediction extrapolates
+        the motion model across the queued and in-flight frames (self.R and
+        the velocity describe the last resolved frame). The store is read
+        under its lock: the mapper actor mutates it from its own thread."""
+        with self.store.lock:
+            return self._assemble_fused_locked(use_pl)
+
+    def _assemble_fused_locked(self, use_pl: bool):
+        lag = 0
+        if self.pipelined:
+            lag = len(self._pending) + sum(
+                len(g) for g, _f, _o in self._inflight)
+        R_pred, t_pred = self.R, self.t
+        for _ in range(lag + 1):
+            t_pred = (self.vel_R @ t_pred + self.vel_t).astype(np.float32)
+            R_pred = (self.vel_R @ R_pred).astype(np.float32)
         last_ids = self.last_kp_pt_id
         if last_ids is None:
             return None
@@ -605,38 +678,91 @@ class Tracker:
     def _ctx_from(self, asm, fr, fl, timestamp, use_pl):
         return dict(asm, fr=fr, fl=fl, timestamp=timestamp, use_pl=use_pl,
                     n_kp=int(fr.kp.xy.shape[0]),
-                    n_kl=int(fl.kl.sp.shape[0]) if use_pl else None)
+                    n_kl=int(fl.kl.sp.shape[0]) if use_pl else None,
+                    seq=self.frame_id)
+
+    def _prepare_fused_packed(self, g8: np.ndarray, d16: np.ndarray,
+                              timestamp: float):
+        """Assemble the fast path's context without touching the device:
+        one host row [gray u8 | depth u16 | candidate meta int32], as bytes,
+        uploaded with the rest of its window when the window is launched."""
+        use_pl = self.use_lines
+        asm = self._assemble_fused(use_pl)
+        if asm is None:
+            return None
+        row = np.concatenate([np.ascontiguousarray(g8).reshape(-1),
+                              np.ascontiguousarray(d16).view(np.uint8)
+                              .reshape(-1), asm["meta"].view(np.uint8)])
+        return dict(asm, out=None, fr=None, fl=None, row=row,
+                    g8_shape=g8.shape, d16_shape=d16.shape,
+                    timestamp=timestamp, use_pl=use_pl, seq=self.frame_id)
+
+    def _launch_group(self, group):
+        """Stack the group's rows into one host tensor, move it to the
+        device with one copy and run each frame's program on its row (fills
+        the contexts' out / fr / fl)."""
+        rows = torch.from_numpy(np.stack([c["row"] for c in group])).to(
+            self.device)
+        for row, c in zip(rows, group):
+            n_g = int(np.prod(c["g8_shape"]))
+            n_d = 2 * int(np.prod(c["d16_shape"]))
+            g8 = row[:n_g].view(c["g8_shape"])
+            d16 = (row[n_g:n_g + n_d].view(torch.int16).to(torch.int32)
+                   & 0xFFFF).view(c["d16_shape"])
+            meta = row[n_g + n_d:].view(torch.int32)
+            out, fr, fl = _frame_track_rgbd_pl(
+                self.cam, g8, d16, meta, c["pt_tbl"], c["ln_tbl"],
+                num_features=self.num_features, n_levels=self.n_levels,
+                scale=self.scale,
+                max_lines=self.max_keylines if c["use_pl"] else None,
+                icap=c["icap"], lcap=c["lcap"],
+                line_weight=self.line_track_weight,
+                check_rotation=self.check_rotation)
+            c.update(out=out, fr=fr, fl=fl, n_kp=int(fr.kp.xy.shape[0]),
+                     n_kl=int(fl.kl.sp.shape[0]) if c["use_pl"] else None)
+
+    @staticmethod
+    def _group_key(c):
+        """Shape signature of a queued frame: consecutive frames that share
+        it are launched and fetched together."""
+        if c.get("row") is None:
+            return ("dispatched", tuple(c["out"].shape))
+        return ("packed", c["use_pl"], len(c["row"]), c["icap"], c["lcap"],
+                tuple(c["g8_shape"]), c["pt_tbl"][0].shape[0],
+                c["ln_tbl"][0].shape[0] if c["use_pl"] else 0)
 
     def process_frame_packed(self, g8: np.ndarray, d16: np.ndarray,
                              timestamp: float):
         """Fast path for the steady OK state: the whole frame (decompress +
         extract + match + solve) is one device program fed the quantized
-        image planes. Returns a TrackResult, or None when the caller must
-        take the separate-build path (non-OK state, no candidates)."""
+        image planes. Returns a TrackResult (a provisional one when
+        pipelined), or None when the caller must take the separate-build
+        path (non-OK state, no candidates)."""
         if self.state != OK:
             return None
-        use_pl = self.use_lines
-        asm = self._assemble_fused(use_pl)
-        if asm is None:
+        ctx = self._prepare_fused_packed(g8, d16, timestamp)
+        if ctx is None:
             return None
-        out, fr, fl = _frame_track_rgbd_pl(
-            self.cam, torch.from_numpy(g8).to(self.device),
-            torch.from_numpy(d16.astype(np.int32)).to(self.device),
-            self._t(asm["meta"]), asm["pt_tbl"], asm["ln_tbl"],
-            num_features=self.num_features, n_levels=self.n_levels,
-            scale=self.scale, max_lines=self.max_keylines if use_pl else None,
-            icap=asm["icap"], lcap=asm["lcap"],
-            line_weight=self.line_track_weight,
-            check_rotation=self.check_rotation)
-        ctx = self._ctx_from(asm, fr, fl, timestamp, use_pl)
-        res = self._finish_fused(out.cpu().numpy(), ctx)
-        self.last_frame = fr
+        self.last_frame = None  # the frame's arrays exist once launched
+        if self.pipelined:
+            self._pending.append(ctx)
+            self.frame_id += 1
+            return TrackResult(OK, ctx["R_pred"], ctx["t_pred"], -1, None)
+        self._launch_group([ctx])
+        res = self._finish_fused(ctx["out"].cpu().numpy(), ctx)
+        self.last_frame = ctx["fr"]
         self.lost_frames = 1 if res.state == LOST else 0
         self.frame_id += 1
         return res
 
     def _finish_fused(self, buf: np.ndarray, ctx) -> TrackResult:
-        """Interpret the fused program's packed output."""
+        """Interpret the fused program's packed output (under the store's
+        lock: the visibility counters, the keyframe decision and creation
+        read and write the map)."""
+        with self.store.lock:
+            return self._finish_fused_locked(buf, ctx)
+
+    def _finish_fused_locked(self, buf: np.ndarray, ctx) -> TrackResult:
         st = self.store
         fr, fl = ctx["fr"], ctx["fl"]
         timestamp = ctx["timestamp"]
@@ -665,24 +791,85 @@ class Tracker:
         return self._track_tail(fr, timestamp, fl, R2, t2, n2, kp_pt2,
                                 kl_ln_id, ctx["local_pts"])
 
+    def resolve_batch(self, force: bool = False,
+                      dispatch_at: int | None = None) -> int:
+        """Deferred resolution: once ``pipeline_depth`` frames (or
+        ``dispatch_at``) are queued, or on ``force``, launch every queued
+        frame (one stacked upload per group of equal shape signature) and
+        finish the launched groups in FIFO order, handing each result to
+        ``on_resolved``. With ``overlap_fetch`` each group's read-back is
+        waited on by the helper thread, and unless forced the newest group
+        stays in flight while its fetch is not done. Returns the number of
+        frames resolved."""
+        depth = (self.pipeline_depth if dispatch_at is None
+                 else max(1, dispatch_at))
+        if self._pending and (force or len(self._pending) >= depth):
+            pending, self._pending = self._pending, []
+            i = 0
+            while i < len(pending):
+                j = i + 1
+                key = self._group_key(pending[i])
+                while (j < len(pending)
+                       and self._group_key(pending[j]) == key):
+                    j += 1
+                group = pending[i:j]
+                deferred = [c for c in group if c["out"] is None]
+                if deferred:
+                    self._launch_group(deferred)
+                outs = tuple(c["out"] for c in group)
+                fut = None
+                if self.overlap_fetch:
+                    if self._fetch_pool is None:
+                        self._fetch_pool = HelperFetch(self.device, 1,
+                                                       "plvs-fetch")
+                    fut = self._fetch_pool(outs)
+                self._inflight.append((group, fut, outs))
+                i = j
+        done = 0
+        while self._inflight:
+            if (not force and self.overlap_fetch
+                    and len(self._inflight) <= 1
+                    and not self._inflight[0][1].done()):
+                break
+            group, fut, outs = self._inflight.pop(0)
+            t0 = time.perf_counter()
+            bufs = fut.result() if fut is not None else fetch_to_host(outs)
+            t1 = time.perf_counter()
+            for c, buf in zip(group, bufs):
+                res = self._finish_fused(buf, c)
+                if self.on_resolved is not None:
+                    self.on_resolved(res, c["timestamp"], c["seq"])
+                done += 1
+            if self.timing is not None:
+                self.timing.append((t1 - t0, time.perf_counter() - t1,
+                                    len(group)))
+        return done
+
     def _track(self, fr: frame_mod.Frame, timestamp: float,
                fl=None) -> TrackResult:
         use_pl = self.use_lines and fl is not None
         asm = self._assemble_fused(use_pl)
         if asm is None:
+            # the slow path needs a fully resolved tracker state
+            self.resolve_batch(force=True)
             R_pred = self.vel_R @ self.R
             t_pred = self.vel_R @ self.t + self.vel_t
             last_ids = self.last_kp_pt_id
             cand = np.unique(last_ids[last_ids >= 0])
-            return self._track_slow(fr, timestamp, fl, cand,
-                                    self._local_points(), R_pred, t_pred)
-        out = _track_frame_tables(
+            with self.store.lock:
+                return self._track_slow(fr, timestamp, fl, cand,
+                                        self._local_points(), R_pred, t_pred)
+        ctx = self._ctx_from(asm, fr, fl, timestamp, use_pl)
+        ctx["out"] = _track_frame_tables(
             self.cam, self._t(asm["meta"]), asm["pt_tbl"], asm["ln_tbl"], fr,
             fl if use_pl else None, asm["icap"], asm["lcap"], self.scale,
             self.line_track_weight, self.check_rotation)
-        return self._finish_fused(out.cpu().numpy(),
-                                  self._ctx_from(asm, fr, fl, timestamp,
-                                                 use_pl))
+        if self.pipelined:
+            # queued: the frame resolves with its window; the caller gets
+            # the motion model's pose
+            self._pending.append(ctx)
+            return TrackResult(OK, ctx["R_pred"], ctx["t_pred"], -1, None)
+        return self._finish_fused(ctx["out"].cpu().numpy(), ctx)
 
     def _in_frustum(self, X_w: np.ndarray, R: np.ndarray, t: np.ndarray,
                     margin: float = 0.0) -> np.ndarray:
@@ -848,10 +1035,10 @@ class Tracker:
             return self._tbl_cache[1], self._tbl_cache[2]
         P, L = key[1], key[2]
         with st.lock:
-            pt_tbl = tuple(self._t(a[:P]) for a in (
+            pt_tbl = tuple(self._snapshot(a[:P]) for a in (
                 st.pt_xyz, st.pt_desc.view(np.int32), st.pt_normal,
                 st.pt_min_dist, st.pt_max_dist, st.pt_angle, st.pt_mask))
-            ln_tbl = tuple(self._t(a[:L]) for a in (
+            ln_tbl = tuple(self._snapshot(a[:L]) for a in (
                 st.ln_Xs, st.ln_Xe, st.ln_desc.view(np.int32), st.ln_mask))
         self._tbl_cache = (key, pt_tbl, ln_tbl)
         return pt_tbl, ln_tbl

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import inspect
 import json
 import os
 import subprocess
@@ -52,8 +53,26 @@ PORT_KERNELS = ("hamming_bmma_kernel", "cc_cluster_kernel", "stereo_band_kernel"
 
 def _stage_timer(torch, totals, counts, name, fn):
     """Wrap ``fn`` so each call is synchronised at both ends and its host
-    time accumulates under ``name``."""
+    time accumulates under ``name``. A generator function (a staged pass)
+    has each of its steps timed so, and counts once, when it ends."""
+    def stages(gen):
+        while True:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                wait, value = next(gen), None
+            except StopIteration as stop:
+                wait, value = stop, stop.value
+            torch.cuda.synchronize()
+            totals[name] += time.perf_counter() - t0
+            if isinstance(wait, StopIteration):
+                counts[name] += 1
+                return value
+            yield wait
+
     def wrapped(*a, **kw):
+        if inspect.isgeneratorfunction(fn):
+            return stages(fn(*a, **kw))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*a, **kw)
@@ -139,7 +158,7 @@ def main() -> int:
                (tracking, "_track_frame_tables", "tracking_program"),
                (pose_opt, "pose_optimize", "pose_solves"),
                (lie, "se3_exp", "gn_iterations"),
-               (mapping.DenseMapper, "insert_keyframe", "dense_stage"),
+               (mapping.DenseMapper, "insert_stages", "dense_stage"),
                (mapping, "disparity", "dense_disparity"),
                (TSDFVolume, "integrate", "dense_integrate")]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]

@@ -13,7 +13,9 @@ D in {3, 16, 64, 128}, r in {1, 2, 3}, ragged, main-path and KITTI shapes.
 The keyframe backend's bundle adjustment and one local-mapper pass run on
 the card against the same code on the CPU, and so do place recognition's
 vocabulary descent (exact), the pose graph (under sync-debug mode: no host
-read inside the solve) and one loop-closer pass.
+read inside the solve) and one loop-closer pass. The pipelined runtime's
+helper-thread fetch is held to a synchronous copy, and a pipelined run with
+its threads and a run with the mapper actor go through the card.
 """
 
 import math
@@ -405,13 +407,14 @@ def test_local_mapper_pass_on_cuda_matches_cpu(dev):
                        max_kf_interval=3)
     system = System(cam, cfg, device="cpu")
     passes = []
-    orig = system.local_mapper.process_keyframe
+    orig = system.local_mapper.process_keyframe_stages
 
-    def recording(kf_id):
+    def recording(kf_id, extra_fetch=None, submit=None):
         passes.append((kf_id, _store_state(system.store)))
-        orig(kf_id)
+        return (yield from orig(kf_id, extra_fetch=extra_fetch,
+                                submit=submit))
 
-    system.local_mapper.process_keyframe = recording
+    system.local_mapper.process_keyframe_stages = recording
     tex = synthetic.make_structured_texture(
         1024, rng=np.random.default_rng(7))
     scene = synthetic.SyntheticRGBD(cam, wall_z=3.0, texture=tex,
@@ -565,3 +568,97 @@ def test_loop_closer_pass_on_cuda_matches_cpu(dev):
     assert abs(ib["inliers"] - ia["inliers"]) <= 0.1 * ia["inliers"]
     live = a.kf_mask
     np.testing.assert_allclose(b.kf_t[live], a.kf_t[live], atol=0.02)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined runtime
+# ---------------------------------------------------------------------------
+
+def test_helper_fetch_matches_a_synchronous_copy(dev):
+    """The helper thread's event-gated fetch of a tree of device outputs
+    equals a synchronous .cpu() of them, with more work queued on the
+    stream after the fetch (which the helper thread does not wait for)."""
+    from plvs_tpu_torch.utils.fetch import HelperFetch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1024, 1024), device=dev, generator=g)
+    y = x @ x
+    fetch = HelperFetch(dev, 1)
+    try:
+        fut = fetch((y, {"sum": y.sum(), "ids": torch.arange(7, device=dev)},
+                     None))
+        for _ in range(20):
+            x = x @ x.T * 1e-3   # queued after the fetch
+        got = fut.result()
+    finally:
+        fetch.shutdown()
+    np.testing.assert_array_equal(got[0], y.cpu().numpy())
+    assert got[1]["sum"] == y.sum().item()
+    np.testing.assert_array_equal(got[1]["ids"], np.arange(7))
+    assert got[2] is None
+
+
+def _small_scene():
+    cam = cameras.pinhole(300.0, 300.0, 160.0, 120.0, width=320, height=240,
+                          bf=24.0)
+    tex = synthetic.make_structured_texture(
+        1024, rng=np.random.default_rng(7))
+    scene = synthetic.SyntheticRGBD(cam, wall_z=3.0, texture=tex,
+                                    tex_scale=220.0)
+    return cam, list(scene.sequence(synthetic.default_trajectory(36)[:16]))
+
+
+def test_pipelined_run_with_overlap_thread_on_cuda(dev):
+    """16 frames at 320x240 through bench.py's runtime on the card
+    (pipelined at depth 4, the overlap thread, the interleaved backend with
+    its helper threads, dense mapping): every frame resolves, tracked, the
+    queues are empty after shutdown, and the ATE is under
+    tests/test_torch_pipelined.py's 3 cm for the same run with threads on
+    the CPU (which frames resolve together follows timing, so the two runs
+    are not compared frame by frame)."""
+    from plvs_tpu_torch.io import evaluation
+
+    cam, frames = _small_scene()
+    cfg = SystemConfig(num_features=512, n_levels=4, max_kf=64,
+                       max_pts=16384, use_lines=True, max_lines=64,
+                       dense_mapping=True, dense_voxel_size=0.04,
+                       backend_fixed_shapes=True, pipelined=True,
+                       pipeline_depth=4, pipeline_overlap=True)
+    system = System(cam, cfg, device=dev)
+    resolved = []
+    post = system._post_track
+
+    def recording(res, ts, payload=None):
+        resolved.append(int(res.state))
+        return post(res, ts, payload)
+
+    system._post_track = recording
+    for ts, g, d, _, _ in frames:
+        system.track_rgbd(g, d, ts)
+    assert system.tracker._fetch_pool is not None
+    system.shutdown()
+    assert len(system.trajectory) == len(frames)
+    assert all(s == 2 for s in resolved[1:]), resolved
+    assert not system.tracker._pending and not system._backend_q
+    gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
+    ate = evaluation.ate_rmse(system.trajectory_tum()[:, 1:4], gt,
+                              align=True)
+    assert ate < 0.03, ate
+
+
+def test_mapper_actor_on_cuda(dev):
+    """The mapper actor on the card: 16 frames with local BA and loop
+    closing on its thread, every frame tracked, one local BA per keyframe
+    after the first, no actor error, and shutdown joins its thread."""
+    cam, frames = _small_scene()
+    cfg = SystemConfig(num_features=512, n_levels=4, max_kf=64,
+                       max_pts=16384, async_mapping=True)
+    system = System(cam, cfg, device=dev)
+    states = [int(system.track_rgbd(g, d, ts)[0])
+              for ts, g, d, _, _ in frames]
+    assert system.actor.wait_idle(120.0)
+    assert system.actor._error is None
+    system.shutdown()
+    assert not system.actor.thread.is_alive()
+    assert all(s == 2 for s in states[1:]), states
+    assert 1 <= len(system.local_mapper.ba_log) < system.store._next_kf_uid

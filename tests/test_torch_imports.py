@@ -45,6 +45,8 @@ def test_the_walk_covers_the_port():
     assert "plvs_tpu_torch/dense/mapping.py" in names
     assert "plvs_tpu_torch/vocab/bow.py" in names
     assert "plvs_tpu_torch/slam/keyframe_database.py" in names
+    assert "plvs_tpu_torch/slam/async_runtime.py" in names
+    assert "plvs_tpu_torch/utils/fetch.py" in names
     assert len(names) > 30
     for src in ("import jax.numpy as jnp", "from plvs_tpu.ops import stereo",
                 "import importlib\nimportlib.import_module('jax')",

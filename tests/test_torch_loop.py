@@ -60,6 +60,7 @@ from plvs_tpu_torch.solvers import sim3_solver as tsim3
 
 import test_loop
 from test_torch_local_mapping import _jax_store_from, _snapshot
+from test_torch_place_recognition import _need_native
 
 CAM_ARGS = (300.0, 300.0, 160.0, 120.0)
 CAM_KW = dict(width=320, height=240, bf=24.0)
@@ -75,11 +76,6 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _need_native():
-    """The JAX package's native index / covisibility engine builds with g++
-    at first use; the tests that compare against it skip without it."""
-    if not native.available():
-        pytest.skip("the native library of plvs_tpu did not build")
 
 
 def _t(a):

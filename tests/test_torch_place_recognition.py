@@ -10,7 +10,10 @@ native C++ index's order, so they are bit-equal to the native ones and the
 rankings (a stable sort of them) are the same.
 """
 
+import fcntl
 import os
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -36,11 +39,34 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _need_native():
+def _need_native(wait_s: float = 180.0):
     """The JAX package's native index / covisibility engine builds with g++
-    at first use; the tests that compare against it skip without it."""
-    if not native.available():
-        pytest.skip("the native library of plvs_tpu did not build")
+    at first use; the tests that compare against it skip without it.
+
+    Parallel test workers all start that build on a fresh tree and write
+    the same temporary file, so a worker can lose the race and cache the
+    error for its whole life. On a failed first load this waits, under an
+    fcntl lock in the temp directory, for the library another worker
+    built, clears the cached error in this process and loads again; it
+    skips only when that fails too."""
+    if native.available():
+        return
+    lock_path = os.path.join(tempfile.gettempdir(), "plvs_native_load.lock")
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            deadline = time.monotonic() + wait_s
+            while time.monotonic() < deadline and not any(
+                    n.startswith("_plvs_native_") and n.endswith(".so")
+                    for n in os.listdir(native._DIR)):
+                time.sleep(0.5)
+            native._lib_err = None
+            ok = native.available()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    if not ok:
+        pytest.skip("the native library of plvs_tpu did not build: "
+                    f"{native.build_error()}")
 
 
 def _desc(rng, n):
