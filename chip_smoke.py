@@ -68,9 +68,21 @@ packages; it is held to what the JAX runs share (the ATE bound, no more
 frames lost than the worst run and the last 10 tracked, the map's density
 per live keyframe), with the actor error-free and joined by
 ``shutdown()``; it prints keyframe and other frames' p50 and p90 and the
-frames during which a loop closed. After each
-of phases 2-8, K1 is held exact against its plain version at every shape
-that phase launched and no earlier phase had checked.
+frames during which a loop closed. Phase 9 drives slice 8's inertial path
+in bench.py's RGB-D-inertial scenario (``_vi_throughput_scenario``:
+640x480, 1024 features, 8 levels, no lines, local BA, ``use_imu``,
+pipelined at depth 2 with the overlap thread, fixed BA shapes, a keyframe
+at least every 4 frames) over the 90 frames of its timed pass with a
+300 Hz IMU, then ``flush()``, and holds it to the JAX package's run: every
+frame resolved and OK, the IMU initialized at JAX's keyframe +-2, the
+gravity's cosine to the truth over 0.98, the gyro bias within 5e-3 of the
+truth, the ATE bound, the live keyframes and points within +-25%, and one
+finite VI BA per keyframe after initialization; it prints track_rgbd's
+p50 and p90 beside bench.py's vi_fps measure, the frame-gap
+preintegration's ms and dispatched operations, and the VI BA's ms with its
+LM and CG iterations. After each of phases 2-9, K1 is held exact against
+its plain version at every shape that phase launched and no earlier phase
+had checked.
 
 It prints one ``{"kernels": [...]}`` line and ends with one
 ``{"ok": true, "device": {...}}`` line. Any failed phase exits non-zero; so
@@ -196,6 +208,23 @@ REF_ASYNC_PER_KF = {"points": 288.46666666666664,
 REF_ASYNC_MIN_KF = 11
 REF_ASYNC_MAX_LOST = 55
 REF_ASYNC_LOOPS = 0
+
+# JAX package's figures on phase 9's run: bench.py's RGB-D-inertial
+# scenario (bench.py:376-384) over the timed pass's 90 frames (seed 1),
+# with the overlap thread off (JAX_PLATFORMS=cpu python
+# scripts/reference_vi.py --inline, CPU run, 80 s): every frame resolved
+# OK, the IMU initialized when the 13th keyframe was made, gravity cosine
+# 0.99986 to the truth, gyro bias 1.82e-3 from it, 23 keyframes made and
+# 13 live, 11 VI BA solves, all finite. Phase 9 holds the port to its ATE
+# bound below, its initialization keyframe +-2 and its live keyframes and
+# points within +-25%; the gravity and bias gates are
+# tests/test_slam_e2e.py's (cosine > 0.98, bias within 5e-3).
+REF_VI = {"init_keyframe": 13, "gravity_cos": 0.9998567699802123,
+          "bias_gyro_err": 0.0018211505587536877,
+          "ate_rmse_m": 0.0050859069494292915,
+          "map": {"keyframes": 13, "points": 1848}, "vi_ba_ok": 11}
+VI_ATE_BOUND_M = max(1.5 * REF_VI["ate_rmse_m"], REF_VI["ate_rmse_m"] + 0.01)
+N_VI_FRAMES = 90
 
 N_FRAMES = 120
 # K1's (Q, K) shapes on phase 2's path
@@ -927,13 +956,13 @@ def _room_frames(cam, synthetic, n: int = N_LOOP_FRAMES):
     return frames
 
 
-def _drive_pipelined(torch, system, frames) -> dict:
+def _drive_pipelined(torch, system, frames, samples=None) -> dict:
     """Track ``frames`` through ``system.track_rgbd`` on this thread, timing
     each call's return (no device synchronisation: the frame's own host
     reads are all it waits for), then flush. Records the resolved states,
     the frames during which a keyframe was made or a loop closed, and the
     largest backlog of the interleaved backend (counted as the reference
-    script counts it)."""
+    script counts it). ``samples``: each frame's IMU samples."""
     resolved, backlog = [], [0]
     post, enqueue = system._post_track, system._enqueue_backend
 
@@ -949,10 +978,15 @@ def _drive_pipelined(torch, system, frames) -> dict:
                                                    recording_enqueue)
     ms, kf_frame, loop_frame = [], [], []
     n_kf, n_loops = system.store._next_kf_uid, len(system.loops_closed)
-    for ts, g, d, _, _ in frames:
+    init_kf = None
+    for i, (ts, g, d, _, _) in enumerate(frames):
+        imu = None if samples is None else samples[i]
         t1 = time.perf_counter()
-        system.track_rgbd(g, d, ts)
+        system.track_rgbd(g, d, ts, imu_samples=imu)
         ms.append((time.perf_counter() - t1) * 1e3)
+        if (init_kf is None and system.inertial is not None
+                and system.inertial.initialized):
+            init_kf = system.store._next_kf_uid
         kf_frame.append(system.store._next_kf_uid > n_kf)
         loop_frame.append(len(system.loops_closed) > n_loops)
         n_kf, n_loops = system.store._next_kf_uid, len(system.loops_closed)
@@ -960,9 +994,13 @@ def _drive_pipelined(torch, system, frames) -> dict:
     system.flush()
     torch.cuda.synchronize()
     flush_ms = (time.perf_counter() - t1) * 1e3
+    if (init_kf is None and system.inertial is not None
+            and system.inertial.initialized):
+        init_kf = system.store._next_kf_uid
     return {"ms": np.asarray(ms), "kf_frame": np.asarray(kf_frame),
             "loop_frame": np.asarray(loop_frame), "resolved": resolved,
-            "max_backlog": backlog[0], "flush_ms": flush_ms}
+            "max_backlog": backlog[0], "flush_ms": flush_ms,
+            "init_kf": init_kf}
 
 
 def _hold_run(phase: int, system, frames, ref_ate, ate_bound) -> dict:
@@ -976,7 +1014,8 @@ def _hold_run(phase: int, system, frames, ref_ate, ate_bound) -> dict:
     ate = evaluation.ate_rmse(est, gt, align=True)
     stats = system.map_statistics()
     dm = system.dense_mapper
-    dense = {"occupied": len(dm.cloud()[0]), "triangles": len(dm.mesh()[1])}
+    dense = ({} if dm is None else
+             {"occupied": len(dm.cloud()[0]), "triangles": len(dm.mesh()[1])})
     queues = {"pending": len(system.tracker._pending),
               "inflight": len(system.tracker._inflight),
               "backend": len(system._backend_q)}
@@ -1147,6 +1186,146 @@ def _phase8(torch, cam, k1_ms_at: dict, words, sync_closing_ms) -> dict:
     if launches["hamming"] < 2 * (len(frames) - 1):
         _fail(f"K1 launched {launches['hamming']} times in phase 8")
     return {"launches": launches, "mix": mix, "k1_err": err, **out}
+
+
+def _synced(torch, obj, name: str, log: list):
+    """Wrap method ``name`` of ``obj``: each call's wall ms between two
+    device synchronisations is appended to ``log`` with its result."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        log.append(((time.perf_counter() - t1) * 1e3, out))
+        return out
+
+    setattr(obj, name, timed)
+
+
+def _count_ops(torch, fn) -> int:
+    """Non-view PyTorch operations ``fn`` dispatches (about one kernel
+    launch each on the card)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    c = Count()
+    with c:
+        fn()
+    return c.n
+
+
+def _phase9(torch, cam, k1_ms_at: dict, words) -> dict:
+    """Slice 8's path: bench.py's RGB-D-inertial scenario — 640x480, 1024
+    features, 8 levels, no lines, local BA, use_imu, pipelined at depth 2
+    with the overlap thread, fixed BA shapes, a keyframe at least every 4
+    frames — over the 90 frames of bench.py's timed pass (seed 1), then
+    flush(); returns the launches and the largest K1 error at new shapes.
+    K1 launches go unbracketed, so track_rgbd's times are the run's own."""
+    from plvs_tpu_torch.io import synthetic
+    from plvs_tpu_torch.ops import cc_labels, hamming, stereo
+    from plvs_tpu_torch.slam import System, SystemConfig
+
+    system = System(cam, SystemConfig(
+        num_features=1024, n_levels=8, scale=1.2, max_kf=128,
+        max_pts=65536, use_lines=False, local_ba=True, loop_closing=False,
+        use_imu=True, pipelined=True, pipeline_depth=2,
+        pipeline_overlap=True, backend_fixed_shapes=True,
+        max_kf_interval=4), device="cuda")
+    scene = synthetic.inertial_scene(cam, 1)
+    seq = synthetic.inertial_sequence(n_frames=N_VI_FRAMES, seed=1)
+    frames = [(ts, *scene.render(R, t), R, t) for ts, R, t, _ in seq]
+    samples = [s for *_, s in seq]
+    iner = system.inertial
+    gaps, inits, vis = [], [], []
+    _synced(torch, iner, "preintegrate_frame_gap", gaps)
+    _synced(torch, iner, "_try_initialize", inits)
+    _synced(torch, iner, "vi_local_ba", vis)
+    hamming.launches = cc_labels.launches = stereo.launches = 0
+    hamming.shapes.clear()
+    t0 = time.perf_counter()
+    run = _drive_pipelined(torch, system, frames, samples)
+    wall = time.perf_counter() - t0
+    launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
+                "stereo_wta": stereo.launches}
+    mix = dict(hamming.shapes)
+    ms = run["ms"][1:]
+    gap_ms = np.asarray([m for m, p in gaps if p is not None])
+    # one frame gap's preintegration counted on the card, after the run
+    t_a, t_b = seq[-2][0], seq[-1][0]
+    iner.samples = [x for f in seq[-2:] for x in f[3]]
+    gap_ops = _count_ops(torch, lambda: iner.preintegrate_frame_gap(t_a, t_b))
+    g_true = np.array([0.3, 9.7, -0.4])
+    g_true = g_true / np.linalg.norm(g_true)
+    g = iner.gravity
+    cos = (float(np.dot(g, g_true) / np.linalg.norm(g)) if g is not None
+           else float("nan"))
+    bg_err = float(np.linalg.norm(iner.bias_gyro
+                                  - np.array([0.002, -0.001, 0.001])))
+    log = iner.vi_ba_log
+    vi_ms = np.asarray([m for m, _ in vis])
+    print(f"phase 9: bench.py's RGB-D-inertial configuration, "
+          f"{N_VI_FRAMES} frames 640x480 with a 300 Hz IMU (pipelined, depth "
+          f"2, overlap thread, local BA, no lines): track_rgbd's return on "
+          f"the tracking thread p50 {np.percentile(ms, 50):.2f} ms p90 "
+          f"{np.percentile(ms, 90):.2f} max {ms.max():.2f} (first frame "
+          f"{run['ms'][0]:.1f}), i.e. {1e3 / np.percentile(ms, 50):.2f} "
+          f"frames/s at p50 and {1e3 / np.percentile(ms, 90):.2f} at p90; "
+          f"the pass {len(frames) / wall:.2f} frames/s ({wall:.2f} s with "
+          f"the flush, bench.py's vi_fps measure); flush "
+          f"{run['flush_ms']:.2f} ms; launches {launches}")
+    print(f"phase 9: frame-gap preintegration (synchronised) median "
+          f"{np.median(gap_ms):.3f} ms p90 {np.percentile(gap_ms, 90):.3f} "
+          f"over {len(gap_ms)} gaps, {gap_ops} dispatched non-view "
+          f"operations for one 10-sample gap; inertial-only init / refine "
+          f"solves {[round(m, 2) for m, _ in inits]} ms")
+    print(f"phase 9: VI BA per keyframe (synchronised) median "
+          f"{np.median(vi_ms) if len(vi_ms) else float('nan'):.2f} ms over "
+          f"{len(vi_ms)} calls, {len(log)} solves; LM / CG iterations "
+          f"{[(e['lm_iters'], e['cg_iters']) for e in log]}; cost "
+          f"{[(round(e['cost0'], 1), round(e['cost'], 1)) for e in log]}")
+    print(f"phase 9: IMU initialized at keyframe {run['init_kf']} (JAX "
+          f"{REF_VI['init_keyframe']}); gravity {np.round(g, 4).tolist() if g is not None else None} "
+          f"cosine to the truth {cos:.5f} (JAX {REF_VI['gravity_cos']:.5f}); "
+          f"gyro bias {np.round(iner.bias_gyro, 6).tolist()}, "
+          f"{bg_err:.6f} from the truth (JAX {REF_VI['bias_gyro_err']:.6f})")
+    out = _hold_run(9, system, frames, REF_VI["ate_rmse_m"], VI_ATE_BOUND_M)
+    print(f"phase 9: JAX: map {REF_VI['map']}, {REF_VI['vi_ba_ok']} VI BA "
+          f"solves, ATE {REF_VI['ate_rmse_m']:.6f} m")
+    lost = [i for i, s_ in enumerate(run["resolved"]) if i and s_ != 2]
+    if lost:
+        _fail(f"phase 9: frames {lost} not OK at resolution")
+    if run["init_kf"] is None or abs(run["init_kf"]
+                                     - REF_VI["init_keyframe"]) > 2:
+        _fail(f"phase 9: the IMU initialized at keyframe {run['init_kf']}; "
+              f"JAX at {REF_VI['init_keyframe']}")
+    if not cos > 0.98:
+        _fail(f"phase 9: gravity cosine {cos} to the truth")
+    if not bg_err < 5e-3:
+        _fail(f"phase 9: gyro bias {bg_err} from the truth")
+    for key in ("keyframes", "points"):
+        ref = REF_VI["map"][key]
+        if abs(out["map"][key] - ref) > 0.25 * ref:
+            _fail(f"phase 9 {key} {out['map'][key]} not within 25% of "
+                  f"JAX's {ref}")
+    if not vis or len(log) != len(vis) or not all(
+            ok and np.isfinite(e["cost"]) for (_, ok), e in zip(vis, log)):
+        _fail(f"phase 9: VI BA calls {[ok for _, ok in vis]}, solves {log}")
+    print("phase 9: K1 launches by Q x K: " + ", ".join(
+        f"{q}x{k} {n}" for (q, k), n in sorted(mix.items())))
+    err = _hold_k1(torch, hamming, words, k1_ms_at, mix, 9)
+    if launches["hamming"] < 2 * (len(frames) - 1):
+        _fail(f"K1 launched {launches['hamming']} times in phase 9")
+    system.shutdown()
+    return {"launches": launches, "mix": mix, "k1_err": err,
+            "init_kf": run["init_kf"], **out}
 
 
 def main() -> int:
@@ -1449,11 +1628,13 @@ def main() -> int:
     run6 = _phase6(torch, cam, scene, brackets, k1_ms_at, words)
     run7 = _phase7(torch, cam, scene, brackets, k1_ms_at, words)
     run8 = _phase8(torch, cam, k1_ms_at, words, run5["closing_ms"])
+    run9 = _phase9(torch, cam, k1_ms_at, words)
     launches5, launches6 = run5["launches"], run6["launches"]
     launches7, launches8 = run7["launches"], run8["launches"]
+    launches9 = run9["launches"]
     k1_err = max(k1_err, launches3["k1_err"], launches4["k1_err"],
                  run5["k1_err"], run6["k1_err"], run7["k1_err"],
-                 run8["k1_err"])
+                 run8["k1_err"], run9["k1_err"])
 
     kernels = [
         {"name": "hamming_matrix", "route": "cuda",
@@ -1468,6 +1649,7 @@ def main() -> int:
          "launches_phase6": launches6["hamming"],
          "launches_phase7": launches7["hamming"],
          "launches_phase8": launches8["hamming"],
+         "launches_phase9": launches9["hamming"],
          "device_ms_phase2": k1_sum,
          "device_ms_phase3": launches3["k1_device_ms"],
          "device_ms_phase4": launches4["k1_device_ms"],
@@ -1485,7 +1667,8 @@ def main() -> int:
          "launches_phase5": launches5["cc_labels"],
          "launches_phase6": launches6["cc_labels"],
          "launches_phase7": launches7["cc_labels"],
-         "launches_phase8": launches8["cc_labels"]},
+         "launches_phase8": launches8["cc_labels"],
+         "launches_phase9": launches9["cc_labels"]},
         {"name": "disparity_wta", "route": "cuda",
          "source": "plvs_tpu_torch/csrc/stereo_wta.cu",
          "replaces": "plvs_tpu/ops/stereo.py:161",
@@ -1496,7 +1679,8 @@ def main() -> int:
          "launches_phase5": launches5["stereo_wta"],
          "launches_phase6": launches6["stereo_wta"],
          "launches_phase7": launches7["stereo_wta"],
-         "launches_phase8": launches8["stereo_wta"]},
+         "launches_phase8": launches8["stereo_wta"],
+         "launches_phase9": launches9["stereo_wta"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

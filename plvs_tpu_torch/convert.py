@@ -5,7 +5,8 @@ angle weights and the LBD pairs (regenerated from the same seeds in
 ``features/orb.py`` and ``features/lines.py``), the vocabulary, the map,
 the keyframe database and the dense volume. The functions here rebuild the
 camera, a vocabulary, the map, the database's per-keyframe word lists, a
-bundle-adjustment problem, a pose-graph problem and the TSDF volume from
+bundle-adjustment problem, a pose-graph problem, the inertial runtime's
+state (its preintegrations among it) and the TSDF volume from
 plain numpy data, so state built by plvs_tpu can be carried on by
 plvs_tpu_torch (the tests track one frame against an identical map, run one
 keyframe backend pass, one loop-closer pass, one bundle adjustment and one
@@ -20,6 +21,8 @@ import torch
 
 from .dense.tsdf import TSDFVolume
 from .geometry import cameras
+from .imu import preintegration as pre
+from .slam.inertial import InertialRuntime
 from .slam.keyframe_database import KeyFrameDatabase
 from .slam.map_store import MapStore
 from .solvers import ba, pose_graph
@@ -118,6 +121,50 @@ def ba_problem_from_numpy(arrays: dict, device="cuda") -> ba.BAProblem:
         return torch.as_tensor(np.array(a, copy=True), device=device)
 
     return ba.BAProblem(*(put(f) for f in ba.BAProblem._fields))
+
+
+def preintegrated_from_numpy(arrays, device="cuda") -> pre.Preintegrated:
+    """A port Preintegrated from the JAX one's fields as numpy (a sequence
+    in field order, or ``{name: value}``)."""
+    if isinstance(arrays, dict):
+        arrays = [arrays[f] for f in pre.Preintegrated._fields]
+    return pre.Preintegrated(*(torch.as_tensor(
+        np.array(a, np.float32, copy=True), device=device) for a in arrays))
+
+
+def inertial_runtime_from_numpy(state: dict, device="cuda",
+                                **kw) -> InertialRuntime:
+    """A port InertialRuntime carrying the JAX runtime's state (``{name:
+    value}`` with numpy leaves, e.g. from ``vars(jax_runtime)``):
+    ``samples``, ``kf_chain``, ``kf_preint`` (``{kf: Preintegrated
+    fields}``), ``kf_raw``, ``kf_velocity``, ``bias_gyro``, ``bias_acc``,
+    ``gravity`` and, when present, ``_cur_velocity`` and ``_last_pose``;
+    ``kw`` are the runtime's settings (calib, R_cb, init_min_time, ...)."""
+    rt = InertialRuntime(device=device, **kw)
+
+    def sample(s):
+        return (float(s[0]), np.array(s[1], np.float32, copy=True),
+                np.array(s[2], np.float32, copy=True))
+
+    rt.samples = [sample(s) for s in state["samples"]]
+    rt.kf_chain = [int(k) for k in state["kf_chain"]]
+    rt.kf_preint = {int(k): preintegrated_from_numpy(p, device)
+                    for k, p in state["kf_preint"].items()}
+    rt.kf_raw = {int(k): (float(t0), [sample(s) for s in raw])
+                 for k, (t0, raw) in state["kf_raw"].items()}
+    rt.kf_velocity = {int(k): np.array(v, np.float32, copy=True)
+                      for k, v in state["kf_velocity"].items()}
+    rt.bias_gyro = np.array(state["bias_gyro"], np.float32, copy=True)
+    rt.bias_acc = np.array(state["bias_acc"], np.float32, copy=True)
+    g = state.get("gravity")
+    rt.gravity = None if g is None else np.array(g, np.float32, copy=True)
+    v = state.get("_cur_velocity")
+    rt._cur_velocity = None if v is None else np.array(v, np.float32,
+                                                       copy=True)
+    lp = state.get("_last_pose")
+    rt._last_pose = None if lp is None else (
+        float(lp[0]), np.array(lp[1], np.float32, copy=True))
+    return rt
 
 
 def tsdf_volume_from_numpy(cam: cameras.Camera, arrays: dict,

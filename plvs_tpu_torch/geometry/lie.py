@@ -171,6 +171,13 @@ def se3_apply(R, t, p):
     return p @ R.transpose(-1, -2) + t
 
 
+def se3_adjoint(R, t) -> torch.Tensor:
+    """Adjoint of SE(3) acting on (rho, theta)-ordered tangents: [..., 6, 6]."""
+    top = torch.cat([R, hat(t) @ R], -1)
+    bot = torch.cat([torch.zeros_like(R), R], -1)
+    return torch.cat([top, bot], -2)
+
+
 # ---------------------------------------------------------------------------
 # Sim(3): (R, t, s); tangent zeta = [rho, theta, sigma] (7,), s = exp(sigma)
 # ---------------------------------------------------------------------------

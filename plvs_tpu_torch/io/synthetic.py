@@ -106,6 +106,55 @@ def orbit_loop_trajectory(n_frames: int = 96, radius: float = 1.0,
     return poses
 
 
+def inertial_sequence(n_frames: int = 90, seed: int = 1, fps: int = 30,
+                      rate: int = 300):
+    """Body motion with an IMU: bench.py's RGB-D-inertial sequence
+    (``bench.py:386-423``) in numpy. Gravity (0.3, 9.7, -0.4) scaled to
+    9.81, gyro bias (0.002, -0.001, 0.001), gyro noise N(0, 1e-4) and
+    accelerometer noise N(0, 1e-3) from ``default_rng(seed)``, ``rate``
+    samples a second, the body frame the camera frame. Returns [(t, R_cw
+    [3, 3], t_cw [3], samples [(t, gyro [3], acc [3])])] per frame, the
+    samples those since the previous frame; the camera sees bench.py's
+    wall through ``SyntheticRGBD(cam, wall_z=3.0,
+    texture=make_structured_texture(2048, default_rng(11 + seed)),
+    tex_scale=420.0)``."""
+    g_w = np.array([0.3, 9.7, -0.4], np.float32)
+    g_w = g_w / np.linalg.norm(g_w) * 9.81
+    dt = 1.0 / rate
+    true_bg = np.array([0.002, -0.001, 0.001], np.float32)
+    R = np.eye(3, dtype=np.float32)
+    p = np.zeros(3, np.float32)
+    v = np.array([0.3, 0.0, 0.08], np.float32)
+    frames = []
+    t_now = 0.0
+    rng = np.random.default_rng(seed)
+    for _ in range(n_frames):
+        samples = []
+        for _ in range(rate // fps):
+            t_now += dt
+            w = np.array([0.1 * np.sin(2 * t_now), 0.15 * np.cos(t_now),
+                          0.05], np.float32)
+            a_w = np.array([0.25 * np.sin(3 * t_now),
+                            0.2 * np.cos(2 * t_now),
+                            0.15 * np.sin(t_now)], np.float32)
+            f_b = R.T @ (a_w - g_w)
+            samples.append((t_now, w + true_bg + rng.normal(0, 1e-4, 3)
+                            .astype(np.float32),
+                            f_b + rng.normal(0, 1e-3, 3).astype(np.float32)))
+            p = p + v * dt + 0.5 * a_w * dt * dt
+            v = v + a_w * dt
+            R = R @ _so3_exp_np(w * dt)
+        R_cw = R.T.copy()
+        frames.append((t_now, R_cw, (-R_cw @ p).copy(), samples))
+    return frames
+
+
+def inertial_scene(cam: cam_mod.Camera, seed: int = 1) -> "SyntheticRGBD":
+    """The wall :func:`inertial_sequence` looks at."""
+    tex = make_structured_texture(2048, rng=np.random.default_rng(11 + seed))
+    return SyntheticRGBD(cam, wall_z=3.0, texture=tex, tex_scale=420.0)
+
+
 def _unit_z_rays(cam: cam_mod.Camera) -> np.ndarray:
     """[3, H*W] camera rays of every pixel centre, scaled to z = 1."""
     h, w = cam.height, cam.width

@@ -19,10 +19,9 @@ Differences from the JAX package, all deliberate:
   meant beyond padding is kept: under ``fixed_shapes`` the line block of
   the local BA is present even for fewer than 4 lines;
 * the mono map growth (``create_new_points`` and its
-  ``triangulate_new_points`` switch, ROADMAP.md queue 1 item 7), the
-  inertial culling gate (item 5) and the sharded global BA (``mesh``,
-  item 8) are not ported yet, and ``warm_ba_buckets`` has no counterpart
-  (it precompiles XLA shapes);
+  ``triangulate_new_points`` switch, ROADMAP.md queue 1 item 7) and the
+  sharded global BA (``mesh``, item 8) are not ported yet, and
+  ``warm_ba_buckets`` has no counterpart (it precompiles XLA shapes);
 * a deferred write-back (the interleaved backend applies a solve frames
   after its dispatch) skips landmark slots that were culled and reused in
   between: the JAX package checks keyframe slots by identity but points
@@ -136,6 +135,11 @@ class LocalMapper:
     # line blocks of the local BA present even for < 4 lines (the JAX
     # package's fixed-shape backend includes them in the solve)
     fixed_shapes: bool = False
+    # inertial runtime (None for visual-only maps): a keyframe of the IMU
+    # chain is culled only when the merged preintegration span stays under
+    # inertial_max_gap seconds, and the runtime re-chains across it
+    inertial: object | None = None
+    inertial_max_gap: float = 3.0
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
@@ -351,6 +355,8 @@ class LocalMapper:
         st = self.store
         covis, _ = st.covisibility(kf_id, min_weight=10)
         okf, opt, _ = st.live_obs()
+        iner = self.inertial
+        iner_active = iner is not None and len(iner.kf_chain) > 0
         for kc in covis:
             kc = int(kc)
             if kc == 0 or kc == kf_id or st.kf_fixed[kc]:
@@ -359,7 +365,13 @@ class LocalMapper:
             if len(pts) < 20:
                 continue
             if (st.pt_n_obs[pts] >= 4).mean() > 0.9:
+                if iner_active:
+                    gap = iner.max_cull_gap(kc)
+                    if gap is None or gap > self.inertial_max_gap:
+                        continue
                 st.remove_keyframe(kc)
+                if iner_active:
+                    iner.remove_keyframe(kc)
                 self.n_culled += 1
                 if self.kfdb is not None:
                     self.kfdb.remove(kc)

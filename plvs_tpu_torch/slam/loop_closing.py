@@ -15,9 +15,11 @@ another map of the atlas welds that map in instead (``_merge``).
 
 The RANSAC draws from a ``torch.Generator`` seeded 0 on the closer's device
 (the JAX package's ``PRNGKey(0)``, whose stream PyTorch cannot
-reproduce). The 4-DoF correction of inertial maps (``gravity_w``), map
-objects (``object_store``) and the sharded pose graph (``mesh``) are not
-ported; setting one raises, naming its ROADMAP.md item.
+reproduce). Once ``gravity_w`` is set (the System sets it when the IMU
+is initialized) the correction is the 4-DoF essential graph: each vertex
+turns only about its camera-frame gravity axis. Map objects
+(``object_store``) and the sharded pose graph (``mesh``) are not ported;
+setting one raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -37,7 +39,6 @@ from .map_store import MapStore, spanning_tree
 
 # settings outside the ported slice -> ROADMAP.md item
 _NOT_IN_SLICE = {
-    "gravity_w": "queue 1 item 5, inertial (the 4-DoF essential graph)",
     "object_store": "queue 1 item 7, map objects",
     "mesh": "queue 1 item 8, multi-device (the sharded pose graph)",
 }
@@ -495,8 +496,17 @@ class LoopCloser:
             torch.cat([torch.ones((n_pairs,), device=dev),
                        torch.full((1,), float(E), device=dev)]),
             torch.ones((E,), dtype=torch.bool, device=dev))
+        dof4_axis = None
+        if self.gravity_w is not None:
+            # gravity is observable: the 4-DoF graph, each vertex's update a
+            # rotation about its camera-frame gravity axis a_k = R_k g_w
+            g = np.asarray(self.gravity_w, np.float32)
+            g = g / max(np.linalg.norm(g), 1e-9)
+            dof4_axis = torch.from_numpy(np.ascontiguousarray(
+                np.einsum("kij,j->ki", R_before, g), np.float32)).to(dev)
         Rn, tn, _, info = pose_graph.optimize(prob, num_iters=12, cg_iters=50,
-                                              fix_scale=self.fix_scale)
+                                              fix_scale=self.fix_scale,
+                                              dof4_axis=dof4_axis)
         Rn, tn = Rn.cpu().numpy(), tn.cpu().numpy()
         info = {k: v.item() for k, v in info.items()}
 

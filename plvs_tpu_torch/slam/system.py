@@ -1,5 +1,6 @@
 """System facade for RGB-D and rectified-stereo SLAM with points and
-lines, loop closing, relocalization and dense TSDF mapping.
+lines, loop closing, relocalization, dense TSDF mapping and, with
+``use_imu``, the inertial path.
 
 Counterpart of plvs_tpu/slam/system.py for the ported slices:
 ``SystemConfig`` keeps every field and default of the JAX package, and the
@@ -32,6 +33,19 @@ three ways, as in the JAX package:
 * on the mapper actor's thread (``async_mapping``,
   ``slam/async_runtime.py``).
 
+With ``use_imu`` the inertial runtime (``slam/inertial.py``) runs around
+every frame, as in the JAX package: before the frame the samples are
+queued, the gap since the last frame is preintegrated and the motion model
+replaced by the IMU prediction (with the per-frame pose prior once the IMU
+is initialized, a gyro-only rotation before); after a tracked frame the
+velocity estimate is refreshed; after a keyframe (synchronously, after its
+backend, or when it is queued on the actor) the keyframe gap is recorded,
+the staged initialization runs, and once initialized the VI local BA,
+coasting through RECENTLY_LOST and the 4-DoF loop correction are on. The
+pipeline is at most 2 deep under the IMU, the interleaved backend is off,
+and the frame clock never moves backwards (a late resolve must not make
+the next gap re-consume samples).
+
 With ``pipelined`` the tracker resolves frames late (``slam/tracking.py``):
 ``track_rgbd`` / ``track_stereo`` return the motion model's pose, the
 trajectory records the resolved poses, and ``_finish_frame`` bounds the
@@ -58,6 +72,7 @@ from ..utils.profiling import Stopwatch
 from ..vocab import bow
 from . import frame as frame_mod
 from . import tracking
+from .inertial import InertialRuntime
 from .keyframe_database import KeyFrameDatabase
 from .local_mapping import LocalMapper
 from .loop_closing import LoopCloser
@@ -127,7 +142,6 @@ class SystemConfig:
 # settings outside this slice -> (value that is in the slice, ROADMAP item)
 _NOT_IN_SLICE = {
     "dense_segmentation": (False, "queue 1 item 7, segmentation"),
-    "use_imu": (False, "queue 1 item 5, inertial"),
     "rectify": (False, "queue 1 item 6, stereo rectification"),
     "sharded_backend": (False, "queue 1 item 8, multi-device"),
     "image_scale": (1.0, "queue 1 item 7, mono and the rest"),
@@ -148,7 +162,11 @@ class System:
     BACKEND_STAGE_DEADLINE = 10
 
     def __init__(self, cam: cam_mod.Camera, config: SystemConfig | None = None,
-                 device: str | torch.device = "cuda", cam2=None, T_c1_c2=None):
+                 device: str | torch.device = "cuda", cam2=None, T_c1_c2=None,
+                 imu_calib=None, imu_T_b_c=None):
+        """``imu_calib`` (``imu.preintegration.ImuCalib`` noise densities)
+        and ``imu_T_b_c`` (4x4 camera-in-body extrinsic, X_b = T X_c)
+        configure the inertial runtime when ``config.use_imu`` is set."""
         self.config = c = config or SystemConfig()
         for name, (ok_value, item) in _NOT_IN_SLICE.items():
             if getattr(c, name) != ok_value:
@@ -188,7 +206,10 @@ class System:
         tr.depth_decimation = c.depth_upload_decimation
         tr.fixed_shapes = c.backend_fixed_shapes
         tr.pipelined = c.pipelined
-        tr.pipeline_depth = max(1, c.pipeline_depth)
+        # shallow under the IMU: the per-frame prediction starts from the
+        # last resolved pose
+        tr.pipeline_depth = max(1, min(c.pipeline_depth, 2) if c.use_imu
+                                else c.pipeline_depth)
         tr.overlap_fetch = c.pipeline_overlap
         tr.on_resolved = self._on_resolved
         # dense payloads of queued frames, by the tracker's frame counter
@@ -219,6 +240,21 @@ class System:
         # (timestamp, ref_kf_uid, R_rel, t_rel): T_frame_w = T_rel * T_ref_w,
         # so the export follows any later change of the keyframe poses
         self._traj_rel = []
+        self._last_frame_ts = None
+        self._last_kf_ts = None
+        self.inertial = None
+        if c.use_imu:
+            kwargs = {}
+            if imu_calib is not None:
+                kwargs["calib"] = imu_calib
+            if imu_T_b_c is not None:
+                T = np.asarray(imu_T_b_c, np.float32)
+                R_bc, t_bc = T[:3, :3], T[:3, 3]
+                kwargs["R_cb"] = np.ascontiguousarray(R_bc.T)
+                kwargs["t_cb"] = (-R_bc.T @ t_bc).astype(np.float32)
+            self.inertial = InertialRuntime(device=self.device, **kwargs)
+            # keyframe culling goes through the inertial re-chaining gate
+            self.local_mapper.inertial = self.inertial
         self.actor = None
         if c.async_mapping:
             from .async_runtime import MapperActor
@@ -258,11 +294,10 @@ class System:
 
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray, timestamp: float,
                    imu_samples=None):
-        """Track one RGB-D frame (gray [H, W], depth [H, W] metres); returns
-        (state, Rcw, tcw)."""
-        if imu_samples is not None:
-            raise NotImplementedError(
-                "imu_samples: the inertial path is ROADMAP.md queue 1 item 5")
+        """Track one RGB-D frame (gray [H, W], depth [H, W] metres; with
+        ``use_imu``, ``imu_samples`` [(t, gyro[3], acc[3])] up to the
+        frame); returns (state, Rcw, tcw)."""
+        self._imu_pre_frame(timestamp, imu_samples)
         if self.actor is not None:
             self.actor.apply_pending_correction()
         self._resolve_pipeline()
@@ -284,11 +319,9 @@ class System:
     def track_stereo(self, gray_l: np.ndarray, gray_r: np.ndarray,
                      timestamp: float, imu_samples=None):
         """Track one rectified stereo pair (gray [H, W] each, float32 as
-        given — stereo images are not quantized); returns (state, Rcw,
-        tcw)."""
-        if imu_samples is not None:
-            raise NotImplementedError(
-                "imu_samples: the inertial path is ROADMAP.md queue 1 item 5")
+        given — stereo images are not quantized; ``imu_samples`` as for
+        ``track_rgbd``: stereo-inertial); returns (state, Rcw, tcw)."""
+        self._imu_pre_frame(timestamp, imu_samples)
         if self.actor is not None:
             self.actor.apply_pending_correction()
         self._resolve_pipeline()
@@ -304,6 +337,57 @@ class System:
             res = self.tracker.process_frame(fr, timestamp, fl)
         payload = ("stereo", gl, gr) if self.dense_mapper else None
         return self._finish_frame(res, timestamp, payload)
+
+    # -- the inertial path -------------------------------------------------
+    def _imu_pre_frame(self, timestamp: float, imu_samples):
+        """Queue the samples and replace the motion model by the IMU
+        prediction: the full state once initialized (with the per-frame
+        pose prior), the gyro's rotation before."""
+        if self.inertial is None:
+            return
+        iner, tr = self.inertial, self.tracker
+        tr.prior_info = None
+        if imu_samples is not None:
+            iner.add_samples(imu_samples)
+        if self._last_frame_ts is None:
+            return
+        if tr.state not in (OK, tracking.RECENTLY_LOST):
+            return
+        p = iner.preintegrate_frame_gap(self._last_frame_ts, timestamp)
+        if p is None:
+            return
+        pred = iner.predict_state(tr.R, tr.t, p)
+        if pred is not None:
+            R_pred, t_pred = pred
+            tr.vel_R = (R_pred @ tr.R.T).astype(np.float32)
+            tr.vel_t = (t_pred - tr.vel_R @ tr.t).astype(np.float32)
+            if iner.per_frame_prior:
+                tr.prior_info = iner.pose_prior_info(p)
+        else:
+            R_pred = iner.predict_rotation(tr.R, p)
+            tr.vel_R = (R_pred @ tr.R.T).astype(np.float32)
+
+    def _imu_post_frame(self, state: int, timestamp: float):
+        """Refresh the velocity estimate from a tracked frame's pose."""
+        if self.inertial is None or state != OK:
+            return
+        self.inertial.note_frame_pose(self.tracker.R, self.tracker.t,
+                                      timestamp)
+
+    def _imu_post_kf(self, kf_id: int, timestamp: float):
+        """Record the keyframe gap (and initialize when due); once
+        initialized, the VI local BA, coasting and the 4-DoF loop
+        correction."""
+        if self.inertial is None:
+            return
+        self.inertial.on_keyframe(kf_id, self._last_kf_ts, timestamp,
+                                  self.store)
+        self._last_kf_ts = timestamp
+        if self.inertial.initialized:
+            self.inertial.vi_local_ba(self.cam, self.store, kf_id)
+            self.tracker.imu_coast = True
+            if self.loop_closer is not None:
+                self.loop_closer.gravity_w = self.inertial.gravity
 
     # -- deferred resolution ----------------------------------------------
     def _on_resolved(self, res, ts: float, seq=None):
@@ -334,6 +418,7 @@ class System:
         tr = self.tracker
         if tr._pending:
             self._pending_payloads[tr._pending[-1]["seq"]] = dense_payload
+            self._last_frame_ts = timestamp
             # the window extrapolates the motion model up to its depth;
             # bound it by the observed rotation rate, and resolve every
             # frame while the motion model is cold
@@ -379,14 +464,21 @@ class System:
         if res.is_keyframe and res.kf_id >= 0:
             if self.actor is not None:
                 self.actor.insert_keyframe(res.kf_id, dense_payload)
+                self._imu_post_kf(res.kf_id, timestamp)
             elif self._interleaved:
                 self._enqueue_backend(res.kf_id, dense_payload)
+                self._imu_post_kf(res.kf_id, timestamp)
             else:
                 self._backend_keyframe(res.kf_id, dense_payload)
-                # keep the tracker's pose consistent with the adjusted
-                # keyframe
+                self._imu_post_kf(res.kf_id, timestamp)
+                # keep the tracker's pose consistent with the adjusted (and
+                # VI-refined) keyframe
                 self.tracker.R = st.kf_R[res.kf_id].copy()
                 self.tracker.t = st.kf_t[res.kf_id].copy()
+        self._imu_post_frame(res.state, timestamp)
+        # never move the frame clock backwards: resolves trail dispatches
+        if self._last_frame_ts is None or timestamp > self._last_frame_ts:
+            self._last_frame_ts = timestamp
         self.trajectory.append((timestamp, res.R.copy(), res.t.copy()))
         return res.state, res.R, res.t
 
@@ -448,6 +540,11 @@ class System:
         if info is None:
             return None
         self.loops_closed.append((kf_id, info))
+        if info.get("merge") and self.inertial is not None \
+                and self.inertial.initialized:
+            # refine the welded region with inertial factors over a wider
+            # temporal window
+            self.inertial.vi_local_ba(self.cam, st, kf_id, window=16)
         if self.config.global_ba_on_loop and self.config.local_ba:
             lm = self.local_mapper
             with self.stopwatch.scope("global_ba"):
@@ -468,8 +565,10 @@ class System:
     # -- the interleaved backend -------------------------------------------
     @property
     def _interleaved(self) -> bool:
+        # visual runs only: the inertial runtime's per-keyframe init and VI
+        # BA assume a settled backend
         return (self.config.interleaved_backend and self.actor is None
-                and self.config.pipelined)
+                and self.config.pipelined and not self.config.use_imu)
 
     def _submit_backend_fetch(self, outs):
         """Hand a stage's fetch to the two backend helper threads (the mesh

@@ -27,8 +27,16 @@ through K1, a 3D-3D RANSAC on the frame's depth, then a local-map match of
 the candidate's window), and ``new_map_after_lost`` lost frames on a mature
 map start a new map of the atlas. The relocalization RANSAC draws from a
 ``torch.Generator`` seeded 7 (the JAX package's ``PRNGKey(7)``). The
-monocular branch of relocalization (PnP), the monocular initializer and IMU
-coasting are not in the ported slices.
+monocular branch of relocalization (PnP) and the monocular initializer are
+not in the ported slices.
+
+The inertial runtime (``slam/inertial.py``) drives two fields, as in the
+JAX package: ``prior_info``, the information of an SE3 prior at the
+predicted pose that enters both fused solves of the frame (on the deferred
+path through the assembled context, and into the group key, so frames with
+and without a prior never share a launch), and ``imu_coast``: once the IMU
+is initialized a lost frame enters RECENTLY_LOST whatever the map's size,
+and the pose coasts on the predicted motion until the grace period ends.
 
 Deferred resolution (``pipelined``), as in the JAX package: a tracked frame
 is queued and answered with the motion model's pose, extrapolated across
@@ -448,7 +456,13 @@ class Tracker:
         # RECENTLY_LOST grace period (seconds), for maps of enough keyframes
         self.time_recently_lost = 5.0
         self.min_kf_recently_lost = 10
+        # set by the System once the IMU is initialized: RECENTLY_LOST
+        # without the keyframe gate, coasting on the predicted motion
+        self.imu_coast = False
         self._lost_ts = 0.0
+        # [6, 6] information of an SE3 prior at the predicted pose, set per
+        # frame by the inertial runtime (None: vision-only solves)
+        self.prior_info: np.ndarray | None = None
         self.only_tracking = False
         self.fov_centers_kf = fov_centers_kf
         self.max_fov_centers_distance = max_fov_centers_distance
@@ -478,6 +492,11 @@ class Tracker:
         elif self.state == RECENTLY_LOST:
             res = self._relocalize(fr, timestamp)
             if res.state != OK:
+                if self.imu_coast:
+                    # publish the predicted pose while the grace lasts
+                    self.R = (self.vel_R @ self.R).astype(np.float32)
+                    self.t = (self.vel_R @ self.t + self.vel_t).astype(
+                        np.float32)
                 if timestamp - self._lost_ts > self.time_recently_lost:
                     self.state = LOST
                 res = TrackResult(self.state, self.R, self.t, res.n_inliers,
@@ -670,10 +689,12 @@ class Tracker:
         meta[icap: icap + m2] = cand2
         meta[2 * icap: 2 * icap + ml] = cand_lines
         meta[2 * icap + lcap:] = Rt_bits
+        prior = (None if self.prior_info is None else torch.tensor(
+            np.asarray(self.prior_info, np.float32), device=self.device))
         return dict(meta=meta, icap=icap, lcap=lcap, pt_tbl=pt_tbl,
                     ln_tbl=ln_tbl, cand=cand, cand2=cand2, m2=m2,
                     cand_lines=cand_lines, ml=ml, local_pts=local_pts,
-                    R_pred=R_pred, t_pred=t_pred)
+                    R_pred=R_pred, t_pred=t_pred, prior=prior)
 
     def _ctx_from(self, asm, fr, fl, timestamp, use_pl):
         return dict(asm, fr=fr, fl=fl, timestamp=timestamp, use_pl=use_pl,
@@ -717,7 +738,7 @@ class Tracker:
                 max_lines=self.max_keylines if c["use_pl"] else None,
                 icap=c["icap"], lcap=c["lcap"],
                 line_weight=self.line_track_weight,
-                check_rotation=self.check_rotation)
+                check_rotation=self.check_rotation, prior_info=c["prior"])
             c.update(out=out, fr=fr, fl=fl, n_kp=int(fr.kp.xy.shape[0]),
                      n_kl=int(fl.kl.sp.shape[0]) if c["use_pl"] else None)
 
@@ -729,7 +750,8 @@ class Tracker:
             return ("dispatched", tuple(c["out"].shape))
         return ("packed", c["use_pl"], len(c["row"]), c["icap"], c["lcap"],
                 tuple(c["g8_shape"]), c["pt_tbl"][0].shape[0],
-                c["ln_tbl"][0].shape[0] if c["use_pl"] else 0)
+                c["ln_tbl"][0].shape[0] if c["use_pl"] else 0,
+                c["prior"] is None)
 
     def process_frame_packed(self, g8: np.ndarray, d16: np.ndarray,
                              timestamp: float):
@@ -863,7 +885,7 @@ class Tracker:
         ctx["out"] = _track_frame_tables(
             self.cam, self._t(asm["meta"]), asm["pt_tbl"], asm["ln_tbl"], fr,
             fl if use_pl else None, asm["icap"], asm["lcap"], self.scale,
-            self.line_track_weight, self.check_rotation)
+            self.line_track_weight, self.check_rotation, asm["prior"])
         if self.pipelined:
             # queued: the frame resolves with its window; the caller gets
             # the motion model's pose
@@ -911,8 +933,10 @@ class Tracker:
         counters, keyframe decision + creation."""
         st = self.store
         if n2 < 10:
-            # a mature map earns the RECENTLY_LOST grace period
-            if st.num_keyframes >= self.min_kf_recently_lost:
+            # a mature map, or an initialized IMU, earns the RECENTLY_LOST
+            # grace period
+            if (self.imu_coast
+                    or st.num_keyframes >= self.min_kf_recently_lost):
                 self.state = RECENTLY_LOST
                 self._lost_ts = timestamp
             else:

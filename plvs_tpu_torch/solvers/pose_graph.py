@@ -8,7 +8,9 @@ mode autodiff (one dual-number pass over the edges stacked once per
 tangent coordinate; the tests hold it against ``jacfwd`` under ``vmap``),
 and the normal equations applied matrix-free and solved by block-Jacobi preconditioned
 CG. ``fix_scale`` pins every scale update to 0 (the RGB-D / stereo SE3
-graph).
+graph). ``dof4_axis`` gives the 4-DoF essential graph of inertial maps:
+each vertex's rotation update is projected onto its camera-frame gravity
+axis (yaw and translation only) and the scale pinned.
 
 As in ``solvers/ba.py``, the JAX ``while_loop``s (LM while not converged,
 CG while the residual has not collapsed) run their full trip counts here
@@ -61,24 +63,32 @@ def _edge_residual(Ri, ti, si, Rj, tj, sj, Rij, tij, sij):
     return lie.sim3_log(Re, te, se)
 
 
-def _apply_delta(R, t, s, dx, fix_scale: bool):
-    """S <- exp(dx) * S, the rotation re-orthonormalised."""
-    if fix_scale:
+def _apply_delta(R, t, s, dx, fix_scale: bool, axis=None):
+    """S <- exp(dx) * S, the rotation re-orthonormalised. With ``axis``
+    [..., 3] (a unit gravity direction per vertex) the rotation update is
+    the rotation about it: exp(a alpha) R == R exp((R^T a) alpha) leaves
+    roll and pitch alone."""
+    if fix_scale or axis is not None:
         dx = torch.cat([dx[..., :6], torch.zeros_like(dx[..., 6:])], -1)
+    if axis is not None:
+        alpha = (dx[..., 3:6] * axis).sum(-1, keepdim=True)
+        dx = torch.cat([dx[..., :3], alpha * axis, dx[..., 6:]], -1)
     dR, dt, ds = lie.sim3_exp(dx)
     Rn, tn, sn = lie.sim3_compose(dR, dt, ds, R, t, s)
     return lie.normalize_rotation(Rn), tn, sn
 
 
 def _edge_fn(fix_scale: bool):
-    def f(dxi, dxj, Ri, ti, si, Rj, tj, sj, Rm, tm, sm):
-        Ri2, ti2, si2 = _apply_delta(Ri, ti, si, dxi, fix_scale)
-        Rj2, tj2, sj2 = _apply_delta(Rj, tj, sj, dxj, fix_scale)
+    def f(dxi, dxj, Ri, ti, si, Rj, tj, sj, Rm, tm, sm, ax_i=None,
+          ax_j=None):
+        Ri2, ti2, si2 = _apply_delta(Ri, ti, si, dxi, fix_scale, ax_i)
+        Rj2, tj2, sj2 = _apply_delta(Rj, tj, sj, dxj, fix_scale, ax_j)
         return _edge_residual(Ri2, ti2, si2, Rj2, tj2, sj2, Rm, tm, sm)
     return f
 
 
-def linearize(prob: PoseGraphProblem, R, t, s, fix_scale: bool):
+def linearize(prob: PoseGraphProblem, R, t, s, fix_scale: bool,
+              dof4_axis=None):
     """Residuals [E, 7] and their Jacobians [E, 7, 7] with respect to the
     tangents of vertex i and vertex j of each edge, at (R, t, s).
 
@@ -91,6 +101,8 @@ def linearize(prob: PoseGraphProblem, R, t, s, fix_scale: bool):
     E = ei.shape[0]
     args = (R[ei], t[ei], s[ei], R[ej], t[ej], s[ej], prob.edge_R,
             prob.edge_t, prob.edge_s)
+    if dof4_axis is not None:
+        args = args + (dof4_axis[ei], dof4_axis[ej])
     f = _edge_fn(fix_scale)
     z = torch.zeros((E, 7), dtype=R.dtype, device=R.device)
     r = f(z, z, *args)
@@ -116,11 +128,9 @@ def edge_costs(prob: PoseGraphProblem, R, t, s):
 def optimize(prob: PoseGraphProblem, num_iters: int = 15, cg_iters: int = 50,
              fix_scale: bool = False, lam0: float = 1e-4, dof4_axis=None):
     """LM over vertex Sim3 tangents. Returns (R, t, s, info) with info =
-    dict(cost0, cost, lm_iters, cg_iters), all device tensors."""
-    if dof4_axis is not None:
-        raise NotImplementedError(
-            "pose_graph.optimize(dof4_axis=...): the 4-DoF essential graph "
-            "of inertial maps is ROADMAP.md queue 1 item 5 (inertial)")
+    dict(cost0, cost, lm_iters, cg_iters), all device tensors.
+    ``dof4_axis`` [K, 3]: the camera-frame gravity direction per vertex
+    (the 4-DoF graph, see the module docstring)."""
     K = prob.R.shape[0]
     dev, f32 = prob.R.device, prob.R.dtype
     free = (~prob.fixed).to(f32)[:, None]
@@ -133,7 +143,7 @@ def optimize(prob: PoseGraphProblem, num_iters: int = 15, cg_iters: int = 50,
         return edge_costs(prob, R, t, s).sum()
 
     def lm_step(R, t, s, lam, cost_prev):
-        r, Ji, Jj = linearize(prob, R, t, s, fix_scale)
+        r, Ji, Jj = linearize(prob, R, t, s, fix_scale, dof4_axis)
         # gradient b = -J^T W r
         b = -(seg_i(((Ji * r[..., None]).sum(-2)) * w[:, None])
               + seg_j(((Jj * r[..., None]).sum(-2)) * w[:, None])) * free
@@ -155,7 +165,7 @@ def optimize(prob: PoseGraphProblem, num_iters: int = 15, cg_iters: int = 50,
             return ((M @ rr[..., None])[..., 0] * free,)
 
         (x,), n_cg = _pcg(matvec, precond, (b,), cg_iters, guard=_guard_max)
-        Rn, tn, sn = _apply_delta(R, t, s, x, fix_scale)
+        Rn, tn, sn = _apply_delta(R, t, s, x, fix_scale, dof4_axis)
         cost_new = cost_of(Rn, tn, sn)
         accept = cost_new < cost_prev
         R = torch.where(accept, Rn, R)

@@ -15,7 +15,10 @@ the card against the same code on the CPU, and so do place recognition's
 vocabulary descent (exact), the pose graph (under sync-debug mode: no host
 read inside the solve) and one loop-closer pass. The pipelined runtime's
 helper-thread fetch is held to a synchronous copy, and a pipelined run with
-its threads and a run with the mapper actor go through the card.
+its threads and a run with the mapper actor go through the card. The
+inertial path: preintegration, the inertial-only initialization and the VI
+BA against the CPU (the two solves under sync-debug mode), and an RGB-D +
+IMU System through the pipelined runtime.
 """
 
 import math
@@ -662,3 +665,177 @@ def test_mapper_actor_on_cuda(dev):
     assert not system.actor.thread.is_alive()
     assert all(s == 2 for s in states[1:]), states
     assert 1 <= len(system.local_mapper.ba_log) < system.store._next_kf_uid
+
+
+# -- the inertial path (slice 8) ---------------------------------------------
+
+def _imu_windows(n_kf=8):
+    """Keyframe body poses four frames apart of the inertial motion and the
+    raw IMU window of each keyframe gap (numpy)."""
+    frames = synthetic.inertial_sequence(n_frames=4 * n_kf, seed=5)
+    kf = frames[3::4]
+    wins = []
+    for i in range(1, n_kf):
+        sel = [s for f in frames[4 * i:4 * i + 4] for s in f[3]]
+        ts = np.asarray([s[0] for s in sel])
+        wins.append((np.stack([s[1] for s in sel]).astype(np.float32),
+                     np.stack([s[2] for s in sel]).astype(np.float32),
+                     np.diff(ts, prepend=kf[i - 1][0]).astype(np.float32)))
+    R_wb = np.stack([R.T for _, R, _, _ in kf]).astype(np.float32)
+    p_wb = np.stack([-R.T @ t for _, R, t, _ in kf]).astype(np.float32)
+    return frames, kf, R_wb, p_wb, wins
+
+
+def _preints(wins, device):
+    from plvs_tpu_torch.imu import preintegration as pre
+
+    z = np.zeros(3, np.float32)
+    return [pre.preintegrate(*(torch.from_numpy(a).to(device) for a in w),
+                             z, z) for w in wins]
+
+
+def test_preintegration_on_cuda_matches_cpu(dev):
+    """Keyframe-gap preintegrations on the card against the CPU: deltas
+    within 1e-5, the bias Jacobians within 5e-5 (the right Jacobian's
+    (1 - cos x) / x^2 at |w dt| ~ 5e-4 is float32 cancellation noise, and
+    the card's cos rounds differently; tests/test_torch_inertial.py), the
+    covariance within 1e-5 of its largest entry."""
+    _, _, _, _, wins = _imu_windows()
+    for c, g in zip(_preints(wins, "cpu"), _preints(wins, dev)):
+        for f in c._fields:
+            a, b = getattr(g, f).cpu().numpy(), getattr(c, f).numpy()
+            tol = (1e-5 * np.abs(b).max() if f == "cov"
+                   else 5e-5 if f in ("JRg", "JVg", "JPg") else 1e-5)
+            np.testing.assert_allclose(a, b, atol=tol, rtol=0, err_msg=f)
+
+
+def test_inertial_init_on_cuda_matches_cpu(dev):
+    """The inertial-only Gauss-Newton solve on the card, with no host read
+    inside it (sync-debug mode "error"), against the CPU: gravity within
+    1e-3, biases within 1e-4 (tests/test_torch_imu.py's CPU bounds times
+    ten: the card's preintegrations differ as above)."""
+    from plvs_tpu_torch.imu import initialization as init
+
+    _, _, R_wb, p_wb, wins = _imu_windows(6)
+    cpu = init.inertial_only_optimize_padded(R_wb, p_wb, _preints(wins, "cpu"),
+                                             fix_scale=True)
+    pres = _preints(wins, dev)
+    pres += [init._identity_preint(pres[0])] * 2
+    args = (torch.from_numpy(np.concatenate(
+        [R_wb, np.tile(np.eye(3, dtype=np.float32)[None], (2, 1, 1))])).to(
+        dev), torch.from_numpy(np.concatenate(
+            [p_wb, np.zeros((2, 3), np.float32)])).to(dev),
+        init.stack_preints(pres))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gpu = init.inertial_only_optimize(*args, fix_scale=True, k_real=6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    np.testing.assert_allclose(gpu.gravity.cpu().numpy(),
+                               cpu.gravity.numpy(), atol=1e-3, rtol=0)
+    for a, b in ((gpu.bias_gyro, cpu.bias_gyro), (gpu.bias_acc, cpu.bias_acc)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4,
+                                   rtol=0)
+
+
+def test_vi_bundle_adjust_on_cuda_matches_cpu(dev):
+    """The VI BA (6 LM x 30 CG) on the card with no host read inside the
+    solve, against the CPU: poses, velocities and points within
+    tests/test_torch_vi_ba.py's JAX bounds (1e-4 for the states, 5e-4 m
+    for the points), the final cost within 1e-3 relative."""
+    from plvs_tpu_torch.imu import initialization as init
+    from plvs_tpu_torch.solvers import vi_ba
+
+    _, kf, R_wb, p_wb, wins = _imu_windows(8)
+    rng = np.random.default_rng(3)
+    K, P = 8, 150
+    R_cw = R_wb.transpose(0, 2, 1)
+    t_cw = -np.einsum("kij,kj->ki", R_cw, p_wb)
+    pts = np.c_[rng.uniform(-1.5, 1.5, (P, 2)), rng.uniform(2, 5, P)]
+    pts = ((pts - t_cw[4]) @ R_cw[4]).astype(np.float32)
+    Xc = np.einsum("kij,pj->kpi", R_cw, pts) + t_cw[:, None]
+    uv = 520.0 * Xc[..., :2] / Xc[..., 2:] + np.array([320.0, 240.0])
+    uvr = np.concatenate([uv + rng.normal(0, 0.5, uv.shape),
+                          -np.ones((K, P, 1))], -1).reshape(-1, 3)
+    ts = np.asarray([f[0] for f in kf])
+    v_w = np.gradient(p_wb, ts, axis=0).astype(np.float32)
+    M = K * P
+
+    def problem(device):
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        return vi_ba.VIProblem(
+            t(R_wb), t((p_wb + rng_p).astype(np.float32)), t(v_w),
+            t(np.zeros((K, 3), np.float32)), t(np.zeros((K, 3), np.float32)),
+            t(np.arange(K) == 0), t(np.ones(K, bool)),
+            t(np.eye(3, dtype=np.float32)), t(np.zeros(3, np.float32)),
+            t(pts + 0.02), t(np.ones(P, bool)), t(np.repeat(np.arange(K), P)),
+            t(np.tile(np.arange(P), K)), t(uvr.astype(np.float32)),
+            t(np.ones(M, np.float32)), t(np.ones(M, bool)),
+            init.stack_preints(_preints(wins, device)),
+            t(np.ones(K - 1, bool)),
+            t(np.array([0.3, 9.7, -0.4], np.float32) / np.float32(
+                np.linalg.norm([0.3, 9.7, -0.4])) * np.float32(9.81)))
+
+    rng_p = rng.normal(0, 0.01, (K, 3))
+    rng_p[0] = 0
+    cam = cameras.pinhole(520.0, 520.0, 320.0, 240.0, width=640, height=480,
+                          bf=40.0)
+    cpu = vi_ba.vi_bundle_adjust(cam, problem("cpu"), num_iters=6,
+                                 cg_iters=30)
+    prob = problem(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gpu = vi_ba.vi_bundle_adjust(cam, prob, num_iters=6, cg_iters=30)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(gpu[6]["cost"]) < float(gpu[6]["cost0"])
+    for a, b, tol in zip(gpu[:6], cpu[:6],
+                         (1e-4, 1e-4, 1e-4, 1e-4, 2e-4, 5e-4)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=tol,
+                                   rtol=0)
+    assert abs(float(gpu[6]["cost"]) - float(cpu[6]["cost"])) <= \
+        1e-3 * float(cpu[6]["cost"])
+
+
+def test_inertial_system_on_cuda(dev):
+    """RGB-D + IMU at 320x240 through the pipelined runtime with its
+    overlap thread on the card (40 frames, init_min_time lowered to 1 s as
+    in tests/test_torch_inertial.py): every frame resolves tracked, the
+    IMU initializes, every VI BA is finite, and the ATE is under that
+    file's 5 cm."""
+    from plvs_tpu_torch.io import evaluation
+
+    cam = cameras.pinhole(300.0, 300.0, 160.0, 120.0, width=320, height=240,
+                          bf=24.0)
+    scene = synthetic.inertial_scene(cam, 1)
+    seq = synthetic.inertial_sequence(n_frames=40, seed=1)
+    cfg = SystemConfig(num_features=512, n_levels=4, max_kf=64,
+                       max_pts=16384, loop_closing=False, use_imu=True,
+                       max_kf_interval=4, pipelined=True, pipeline_depth=2,
+                       pipeline_overlap=True, backend_fixed_shapes=True)
+    system = System(cam, cfg, device=dev)
+    system.inertial.init_min_time = 1.0
+    resolved = []
+    post = system._post_track
+
+    def recording(res, ts, payload=None):
+        resolved.append(int(res.state))
+        return post(res, ts, payload)
+
+    system._post_track = recording
+    for ts, R, t, samples in seq:
+        g, d = scene.render(R, t)
+        system.track_rgbd(g, d, ts, imu_samples=samples)
+    system.shutdown()
+    assert len(resolved) == len(seq) and all(s == 2 for s in resolved[1:])
+    assert system.inertial.initialized
+    log = system.inertial.vi_ba_log
+    assert log and all(np.isfinite(e["cost"]) for e in log)
+    gt = np.stack([-R.T @ t for _, R, t, _ in seq])
+    ate = evaluation.ate_rmse(system.trajectory_tum()[:, 1:4], gt,
+                              align=True)
+    assert ate < 0.05, ate

@@ -13,7 +13,8 @@ FILES = sorted(
     [p for p in (ROOT / "plvs_tpu_torch").rglob("*.py")]
     + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_port_frame.py",
        ROOT / "scripts" / "probe_k1_design.py",
-       ROOT / "scripts" / "count_ba_ops.py"])
+       ROOT / "scripts" / "count_ba_ops.py",
+       ROOT / "scripts" / "count_imu_ops.py"])
 FORBIDDEN = ("jax", "jaxlib", "plvs_tpu")
 
 
@@ -47,6 +48,10 @@ def test_the_walk_covers_the_port():
     assert "plvs_tpu_torch/slam/keyframe_database.py" in names
     assert "plvs_tpu_torch/slam/async_runtime.py" in names
     assert "plvs_tpu_torch/utils/fetch.py" in names
+    for mod in ("imu/preintegration.py", "imu/initialization.py",
+                "solvers/vi_ba.py", "slam/inertial.py"):
+        assert f"plvs_tpu_torch/{mod}" in names, mod
+    assert "scripts/count_imu_ops.py" in names
     assert len(names) > 30
     for src in ("import jax.numpy as jnp", "from plvs_tpu.ops import stereo",
                 "import importlib\nimportlib.import_module('jax')",

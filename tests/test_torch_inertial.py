@@ -1,0 +1,451 @@
+"""The port's inertial runtime and the System's inertial path against the
+JAX package's.
+
+Runtime: both runtimes are fed the same samples and keyframes (a store
+stand-in holding the true keyframe poses of the chip run's inertial
+motion), or start from one state converted from the JAX runtime. The
+keyframe chain, the raw windows and the culling gaps are equal exactly;
+preintegrations, predictions, prior informations and the initialization's
+gravity, biases and velocities are held to tests/test_torch_imu.py's
+bounds (each stated where it is used).
+
+The deltas cache: the JAX runtime keys it on the preintegration alone, so
+after a bias write it returns deltas corrected to the old bias (ADVICE.md);
+the port keys it on a bias generation too. The test shows both packages
+agree on the per-frame path and that the port re-corrects where JAX does
+not. The keyframe-culling gate makes the same decisions in both packages'
+LocalMapper on a store stand-in.
+
+System: RGB-D + IMU at 320x240, 512 features, 4 levels, a keyframe every
+4 frames, over 40 frames of the chip run's inertial motion and wall,
+synchronously and pipelined at depth 2 with the overlap thread off, and a
+36-frame stereo + IMU run. ``init_min_time`` is lowered to 1.0 s on both
+runtimes (a field of each instance; the JAX package is not edited) so the
+IMU initializes within the run, at the ninth keyframe (frame 32). At 0.6 s
+the JAX package's own initialization is unstable on this motion (gravity
+90 degrees off, then the tracking diverges), so no lower value makes a
+comparison. Per frame the tracking state, whether the IMU is initialized
+and the keyframe count are equal, so the IMU initializes at the same
+keyframe, and the poses agree within 5e-4 (5e-5 measured: the VI BA's
+float32 results differ by up to 1e-4, tests/test_torch_vi_ba.py, and the
+next frames are tracked from the refined keyframes); the ATEs within 20%
+of each other plus 1 mm. The refined gravity within 2e-2 m/s^2 and the
+gyro bias within 1e-4 (6.3e-3 and 9e-6 measured: the one-second
+initialization is poorly conditioned, cosine 0.91-0.97 to the truth in
+both packages, so its refinements at later keyframes amplify the
+packages' 1e-7 differences). The stereo run is held as
+tests/test_torch_stereo.py holds stereo tracking (a borderline stereo
+match can flip, and over 36 frames several do): poses within 3e-2 (1.9e-2
+measured), and its noisier keyframe poses (ATE 3.1 cm) make both
+initializations poor (cosine 0.75 to the true gravity), so the refined
+gravity is held within 1.0 m/s^2 (0.72 measured, 6 degrees) and the gyro
+bias within 2e-3 (8.5e-4 measured).
+"""
+
+import copy
+import threading
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from plvs_tpu.geometry import cameras as jcam
+from plvs_tpu.io import evaluation
+from plvs_tpu.slam import System as JSystem, SystemConfig as JConfig
+from plvs_tpu.slam import inertial as jiner
+from plvs_tpu_torch import convert
+from plvs_tpu_torch.geometry import cameras as tcam
+from plvs_tpu_torch.imu import preintegration as tpre
+from plvs_tpu_torch.io import synthetic as tsyn
+from plvs_tpu_torch.slam import System as TSystem, SystemConfig as TConfig
+from plvs_tpu_torch.slam import inertial as tiner
+from plvs_tpu_torch.slam.tracking import OK
+
+from test_torch_system import CAM_ARGS, CAM_KW
+
+INIT_MIN_TIME = 1.0
+VI_FLAGS = dict(num_features=512, n_levels=4, max_kf=64, max_pts=16384,
+                use_lines=False, local_ba=False, loop_closing=False,
+                dense_mapping=False, use_imu=True, max_kf_interval=4,
+                depth_upload_decimation=2)
+POSE_TOL = 5e-4
+JCAM = jcam.pinhole(*CAM_ARGS, **CAM_KW)
+TCAM = tcam.pinhole(*CAM_ARGS, **CAM_KW)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small CPU ops: one intra-op thread, as tests/test_torch_ba.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ---------------------------------------------------------------------------
+# the runtime
+# ---------------------------------------------------------------------------
+
+def _store_standin(frames, every=4):
+    """A store stand-in with the true camera poses of every ``every``-th
+    frame as keyframes 0, 1, ...: what on_keyframe and the initialization
+    read."""
+    kfs = frames[every - 1::every]
+    n = len(kfs)
+    st = types.SimpleNamespace(
+        kf_mask=np.ones(n, bool),
+        kf_R=np.stack([R for _, R, _, _ in kfs]).astype(np.float32),
+        kf_t=np.stack([t for _, _, t, _ in kfs]).astype(np.float32),
+        lock=threading.RLock())
+    return st
+
+
+def _feed(rt, frames, st, every=4, upto=None):
+    """Samples frame by frame and a keyframe every ``every`` frames; returns
+    the keyframe at which the runtime first reported initialized."""
+    init_at, t_prev, k = None, None, 0
+    for i, (ts, _, _, samples) in enumerate(frames[:upto]):
+        rt.add_samples(samples)
+        if (i + 1) % every == 0:
+            rt.on_keyframe(k, t_prev, ts, st)
+            t_prev = ts
+            if rt.initialized and init_at is None:
+                init_at = k
+            k += 1
+    return init_at
+
+
+def _jax_state(rt):
+    """The JAX runtime's state as numpy, for convert.inertial_runtime_from_numpy."""
+    s = dict(vars(rt))
+    s["kf_preint"] = {k: [np.asarray(x) for x in p]
+                      for k, p in rt.kf_preint.items()}
+    return s
+
+
+def _preint_close(tp, jp, tol=1e-6, jac_tol=1e-6):
+    """tests/test_torch_imu.py's bounds: 1e-6 absolute, the covariance
+    1e-6 relative to its largest entry. ``jac_tol`` for the bias Jacobians
+    of a gap integrated at the packages' own bias estimates, which differ
+    by ~1e-7: the right Jacobian's (1 - cos x) / x^2 at x = |w dt| ~ 5e-4
+    is float32 cancellation noise of +-25% in both packages, so a 1e-7
+    change of its input moves JRg (and JVg, JPg through it) by up to ~1e-5
+    over a 40-sample gap (1.2e-5 measured). The linearization biases are
+    the runtimes' own, held to the initialization's 2e-5, and ``tol`` then
+    covers dV and dP integrated at them (2e-5 x dT plus rounding of O(1)
+    values: 1.4e-6 measured)."""
+    for f in tpre.Preintegrated._fields:
+        a, b = getattr(tp, f).numpy(), np.asarray(getattr(jp, f))
+        tol = (1e-6 * float(np.abs(b).max()) if f == "cov"
+               else jac_tol if f in ("JRg", "JVg", "JPg")
+               else 2e-5 if f.startswith("bias") else tol)
+        np.testing.assert_allclose(a, b, atol=tol, rtol=0, err_msg=f)
+
+
+def _pair(jrt):
+    """A copy of the JAX runtime and a port runtime converted from it."""
+    j = copy.deepcopy(jrt)
+    return j, convert.inertial_runtime_from_numpy(_jax_state(j),
+                                                  device="cpu")
+
+
+@pytest.fixture(scope="module")
+def fed():
+    """Both runtimes fed 12 keyframes of the motion with init_min_time
+    lowered as in the System runs (initialization at the sixth keyframe,
+    refined at every later one)."""
+    frames = tsyn.inertial_sequence(n_frames=48, seed=3)
+    st = _store_standin(frames)
+    jrt = jiner.InertialRuntime(init_min_time=INIT_MIN_TIME)
+    trt = tiner.InertialRuntime(init_min_time=INIT_MIN_TIME, device="cpu")
+    j_init = _feed(jrt, frames, st)
+    t_init = _feed(trt, frames, st)
+    return frames, st, jrt, trt, j_init, t_init
+
+
+def test_keyframe_chain_and_initialization_match_jax(fed):
+    """The chain, the raw windows and each keyframe gap's preintegration
+    (1e-6, as tests/test_torch_imu.py); the initialization at the same
+    keyframe with gravity within 1e-4, biases within 2e-5 and velocities
+    within 1e-5 (tests/test_torch_imu.py's bounds; here the velocities of
+    a refined solve, 1e-4)."""
+    _, _, jrt, trt, j_init, t_init = fed
+    assert j_init is not None and t_init == j_init
+    assert trt.kf_chain == jrt.kf_chain
+    assert trt.kf_raw.keys() == jrt.kf_raw.keys()
+    for k, (t0, raw) in jrt.kf_raw.items():
+        tt0, traw = trt.kf_raw[k]
+        assert tt0 == t0 and [s[0] for s in traw] == [s[0] for s in raw]
+    for k, jp in jrt.kf_preint.items():
+        _preint_close(trt.kf_preint[k], jp, tol=5e-6, jac_tol=5e-5)
+    np.testing.assert_allclose(trt.gravity, jrt.gravity, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(trt.bias_gyro, jrt.bias_gyro, atol=2e-5,
+                               rtol=0)
+    np.testing.assert_allclose(trt.bias_acc, jrt.bias_acc, atol=2e-5,
+                               rtol=0)
+    for k, v in jrt.kf_velocity.items():
+        np.testing.assert_allclose(trt.kf_velocity[k], v, atol=1e-4, rtol=0)
+    g_true = np.array([0.3, 9.7, -0.4])
+    assert np.dot(jrt.gravity, g_true) / (
+        np.linalg.norm(jrt.gravity) * np.linalg.norm(g_true)) > 0.98
+
+
+def test_predict_state_and_prior_match_jax(fed):
+    """From one converted state: the gyro rotation, the full state
+    prediction and the prior information over the last frame gap. Poses
+    within 1e-5 (one 10-sample preintegration, 1e-6, composed with poses
+    of order 1), the information within 1e-5 relative."""
+    frames, _, jrt0, _, _, _ = fed
+    jrt, trt = _pair(jrt0)
+    for ts, R_cw, t_cw, _ in frames[-3:-1]:
+        jrt.note_frame_pose(R_cw, t_cw, ts)
+        trt.note_frame_pose(R_cw, t_cw, ts)
+    _, R_cw, t_cw, _ = frames[-2]
+    jp = jrt.preintegrate_frame_gap(frames[-2][0], frames[-1][0])
+    tp = trt.preintegrate_frame_gap(frames[-2][0], frames[-1][0])
+    _preint_close(tp, jp)
+    np.testing.assert_allclose(trt.predict_rotation(R_cw, tp),
+                               jrt.predict_rotation(R_cw, jp), atol=1e-6,
+                               rtol=0)
+    jpred = jrt.predict_state(R_cw, t_cw, jp)
+    tpred = trt.predict_state(R_cw, t_cw, tp)
+    for a, b in zip(tpred, jpred):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(trt._cur_velocity, jrt._cur_velocity,
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(trt.pose_prior_info(tp),
+                               jrt.pose_prior_info(jp), rtol=1e-5)
+
+
+def test_cull_gap_and_rechaining_match_jax(fed):
+    """max_cull_gap of every chain node (exact: host timestamps), then
+    removing an interior node re-chains its successor by re-integrating
+    the concatenated raw windows: the same chain and windows, the merged
+    preintegration within 1e-6."""
+    jrt, conv = _pair(fed[2])
+    for k in conv.kf_chain + [99]:
+        assert conv.max_cull_gap(k) == jrt.max_cull_gap(k)
+    kc = conv.kf_chain[4]
+    nxt = conv.kf_chain[5]
+    assert conv.remove_keyframe(kc) and jrt.remove_keyframe(kc)
+    assert conv.kf_chain == jrt.kf_chain and kc not in conv.kf_chain
+    assert [s[0] for s in conv.kf_raw[nxt][1]] == [
+        s[0] for s in jrt.kf_raw[nxt][1]]
+    # an 80-sample window: the bias Jacobians' float32 noise (see
+    # _preint_close) grows with the length, 1.4e-6 measured
+    _preint_close(conv.kf_preint[nxt], jrt.kf_preint[nxt], jac_tol=5e-6)
+    assert not conv.remove_keyframe(kc)
+    # the end nodes are not interior: no gap
+    assert conv.max_cull_gap(conv.kf_chain[0]) is None
+    assert conv.max_cull_gap(conv.kf_chain[-1]) is None
+
+
+def test_try_initialize_matches_jax_from_a_converted_state(fed):
+    """_try_initialize re-run on a converted pre-initialization state (the
+    chain of the first six keyframes) in both packages."""
+    frames, st, _, _, _, _ = fed
+    jrt = jiner.InertialRuntime(init_min_time=99.0)   # never on its own
+    _feed(jrt, frames, st, upto=24)
+    assert not jrt.initialized
+    trt = convert.inertial_runtime_from_numpy(_jax_state(jrt), device="cpu")
+    assert jrt._try_initialize(st) and trt._try_initialize(st)
+    np.testing.assert_allclose(trt.gravity, jrt.gravity, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(trt.bias_gyro, jrt.bias_gyro, atol=2e-5,
+                               rtol=0)
+    np.testing.assert_allclose(trt.bias_acc, jrt.bias_acc, atol=2e-5,
+                               rtol=0)
+    assert trt.kf_velocity.keys() == jrt.kf_velocity.keys()
+    for k, v in jrt.kf_velocity.items():
+        np.testing.assert_allclose(trt.kf_velocity[k], v, atol=1e-4, rtol=0)
+
+
+def test_deltas_cache_keys_on_the_bias(fed):
+    """The per-frame path (rotation, state and prior read one cached fetch)
+    agrees in both packages; after a bias write the JAX cache returns the
+    deltas of the old bias (a known fault of the reference, ADVICE.md),
+    the port's the re-corrected ones."""
+    frames, _, jrt0, _, _, _ = fed
+    jrt, trt = _pair(jrt0)
+    jp = jrt.preintegrate_frame_gap(frames[-2][0], frames[-1][0])
+    tp = trt.preintegrate_frame_gap(frames[-2][0], frames[-1][0])
+    jd0 = jrt._fetch_deltas(jp)
+    td0 = trt._fetch_deltas(tp)
+    for a, b in zip(td0, jd0):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+    assert trt._fetch_deltas(tp) is td0          # one fetch per gap
+    # a bias write (as the VI BA's bias hand-over makes)
+    new_bg = (np.asarray(jrt.bias_gyro) + 0.01).astype(np.float32)
+    jrt.bias_gyro = new_bg
+    trt.bias_gyro = new_bg.copy()
+    jd1 = jrt._fetch_deltas(jp)
+    td1 = trt._fetch_deltas(tp)
+    assert all(np.array_equal(a, b) for a, b in zip(jd1, jd0))   # stale
+    fresh = [t.numpy() for t in tpre.deltas(tp, trt.bias_gyro,
+                                            trt.bias_acc)]
+    assert all(np.array_equal(a, b) for a, b in zip(td1, fresh))
+    assert np.abs(td1[0] - td0[0]).max() > 1e-5   # dR moved with the bias
+
+
+def test_fix_scale_false_names_item_7():
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tiner.InertialRuntime(fix_scale=False, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the System
+# ---------------------------------------------------------------------------
+
+def _vi_frames(n, stereo=False, seed=1):
+    """(ts, gray, depth or right image, samples, R_cw, t_cw) per frame of
+    the chip run's inertial motion and wall (io/synthetic.py), rendered at
+    320x240."""
+    scene = tsyn.inertial_scene(TCAM, seed)
+    base = CAM_KW["bf"] / CAM_ARGS[0]
+    out = []
+    for ts, R, t, samples in tsyn.inertial_sequence(n_frames=n, seed=seed):
+        g, d = scene.render(R, t)
+        if stereo:
+            d, _ = scene.render(R, t - np.array([base, 0, 0], np.float32))
+        out.append((ts, g, d, samples, R, t))
+    return out
+
+
+def _run(system, frames, stereo=False):
+    rec = []
+    for ts, a, b, samples, _, _ in frames:
+        if stereo:
+            state, R, t = system.track_stereo(a, b, ts, imu_samples=samples)
+        else:
+            state, R, t = system.track_rgbd(a, b, ts, imu_samples=samples)
+        rec.append({"state": int(state), "R": np.array(R), "t": np.array(t),
+                    "init": system.inertial.initialized,
+                    "kfs": int(system.store._next_kf_uid)})
+    system.flush()
+    return rec, system.trajectory_tum()
+
+
+def _both(flags, frames, stereo=False):
+    jsys = JSystem(JCAM, JConfig(**flags))
+    tsys = TSystem(TCAM, TConfig(**flags), device="cpu")
+    jsys.inertial.init_min_time = INIT_MIN_TIME
+    tsys.inertial.init_min_time = INIT_MIN_TIME
+    jres = _run(jsys, frames, stereo)
+    tres = _run(tsys, frames, stereo)
+    return jres, tres, jsys, tsys
+
+
+@pytest.fixture(scope="module", params=["sync", "pipelined"])
+def rgbd_runs(request):
+    flags = dict(VI_FLAGS)
+    if request.param == "pipelined":
+        flags.update(pipelined=True, pipeline_depth=4,
+                     pipeline_overlap=False)
+    frames = _vi_frames(40)
+    return (*_both(flags, frames), frames, request.param)
+
+
+def _hold_system(jres, tres, jsys, tsys, frames, pose_tol=POSE_TOL,
+                 grav_tol=2e-2, bias_tol=1e-4):
+    (jr, jt), (tr, tt) = jres, tres
+    assert [r["state"] for r in tr] == [r["state"] for r in jr]
+    assert all(r["state"] == OK for r in tr[1:])
+    assert [r["init"] for r in tr] == [r["init"] for r in jr]
+    assert [r["kfs"] for r in tr] == [r["kfs"] for r in jr]
+    assert tsys.inertial.initialized
+    assert tsys.inertial.kf_chain == jsys.inertial.kf_chain
+    for a, b in zip(tr, jr):
+        np.testing.assert_allclose(a["R"], b["R"], atol=pose_tol, rtol=0)
+        np.testing.assert_allclose(a["t"], b["t"], atol=pose_tol, rtol=0)
+    np.testing.assert_allclose(tt[:, 1:], jt[:, 1:], atol=pose_tol, rtol=0)
+    gt = np.stack([-R.T @ t for *_, R, t in frames])
+    ate_j = evaluation.ate_rmse(jt[:, 1:4], gt, align=True)
+    ate_t = evaluation.ate_rmse(tt[:, 1:4], gt, align=True)
+    assert ate_t < 0.05, ate_t
+    assert abs(ate_t - ate_j) <= 0.2 * max(ate_j, ate_t) + 1e-3, (ate_j,
+                                                                  ate_t)
+    # the initialized runtimes agree (biases after the VI BA hand-over)
+    np.testing.assert_allclose(tsys.inertial.gravity, jsys.inertial.gravity,
+                               atol=grav_tol, rtol=0)
+    np.testing.assert_allclose(tsys.inertial.bias_gyro,
+                               jsys.inertial.bias_gyro, atol=bias_tol, rtol=0)
+
+
+def test_rgbd_inertial_system_tracks_like_jax(rgbd_runs):
+    jres, tres, jsys, tsys, frames, mode = rgbd_runs
+    _hold_system(jres, tres, jsys, tsys, frames)
+    assert tsys.tracker.pipeline_depth == (2 if mode == "pipelined" else 1)
+    assert not tsys._interleaved
+    # one finite VI BA per keyframe once initialized
+    log = tsys.inertial.vi_ba_log
+    assert log and all(np.isfinite(e["cost"]) for e in log)
+    assert tsys.tracker.imu_coast
+
+
+def test_stereo_inertial_system_tracks_like_jax():
+    frames = _vi_frames(36, stereo=True)
+    flags = dict(VI_FLAGS, sensor="stereo")
+    _hold_system(*_both(flags, frames, stereo=True), frames, pose_tol=3e-2,
+                 grav_tol=1.0, bias_tol=2e-3)
+
+
+class _CullStore:
+    """What cull_keyframes reads of a store: keyframes 1-3 covisible with
+    keyframe 4, each seeing 30 points observed by 4 keyframes (redundant)."""
+
+    def __init__(self):
+        self.kf_fixed = np.zeros(8, bool)
+        self.pt_n_obs = np.full(200, 4, np.int32)
+        okf = np.repeat(np.arange(1, 5), 30)
+        opt = np.arange(120)
+        self._obs = (okf, opt, np.zeros_like(opt))
+        self.removed = []
+
+    def covisibility(self, kf_id, min_weight=10):
+        return np.array([1, 2, 3]), np.array([30, 30, 30])
+
+    def live_obs(self):
+        return self._obs
+
+    def remove_keyframe(self, kc):
+        self.removed.append(int(kc))
+
+
+class _ChainStub:
+    """An inertial runtime's culling interface with fixed merged spans."""
+
+    def __init__(self, gaps):
+        self.kf_chain = [0, 1, 2, 3, 4]
+        self.gaps = gaps
+        self.removed = []
+
+    def max_cull_gap(self, kc):
+        return self.gaps.get(kc)
+
+    def remove_keyframe(self, kc):
+        self.removed.append(int(kc))
+        return True
+
+
+@pytest.mark.parametrize("inertial", [False, True])
+def test_inertial_culling_gate_matches_jax(inertial):
+    """Keyframe culling on an inertial map: a redundant keyframe goes only
+    when its merged preintegration span stays within inertial_max_gap (3 s)
+    and it is an interior chain node, and the runtime re-chains across it;
+    without the runtime every redundant keyframe goes. The same decisions
+    in both packages."""
+    from plvs_tpu.slam import local_mapping as jlm
+    from plvs_tpu_torch.slam import local_mapping as tlm
+
+    gaps = {1: 0.5, 2: 3.5}                    # 3: not interior (None)
+    out = []
+    for mod, cam in ((jlm, JCAM), (tlm, TCAM)):
+        st = _CullStore()
+        kw = {} if mod is jlm else {"device": "cpu"}
+        lm = mod.LocalMapper(cam, st, **kw)
+        chain = _ChainStub(gaps) if inertial else None
+        lm.inertial = chain
+        lm.cull_keyframes(4)
+        out.append((st.removed, chain.removed if chain else None))
+    assert out[1] == out[0]
+    assert out[0] == (([1], [1]) if inertial else ([1, 2, 3], None))

@@ -126,8 +126,7 @@ def test_rgbd_dense_map_agrees(runs):
 def test_unsupported_settings_raise():
     cam = tcam.pinhole(*CAM_ARGS, **CAM_KW)
     for kw in (dict(rectify=True), dict(dense_segmentation=True),
-               dict(use_imu=True), dict(use_imu=True, pipelined=True),
-               dict(sensor="mono")):
+               dict(use_imu=True, sensor="mono"), dict(sensor="mono")):
         with pytest.raises(NotImplementedError):
             TSystem(cam, TConfig(**{**FLAGS, **kw}), device="cpu")
     with pytest.raises(NotImplementedError):   # the non-rectified rig
