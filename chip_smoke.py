@@ -80,9 +80,29 @@ truth, the ATE bound, the live keyframes and points within +-25%, and one
 finite VI BA per keyframe after initialization; it prints track_rgbd's
 p50 and p90 beside bench.py's vi_fps measure, the frame-gap
 preintegration's ms and dispatched operations, and the VI BA's ms with its
-LM and CG iterations. After each of phases 2-9, K1 is held exact against
-its plain version at every shape that phase launched and no earlier phase
-had checked.
+LM and CG iterations. Phase 10 drives slice 9's rig path —
+``System.track_stereo`` with ``cam2`` / ``T_c1_c2``: tests/test_stereo_rig.py's
+KB8 fisheye pair scaled to 640x480 over 90 frames of phase 2's wall and
+poses, local BA with fixed BA shapes, no lines — and holds it to the JAX
+package's run (``scripts/reference_rig.py``): every frame OK, the ATE, the
+live keyframes and points, the first frame's triangulated depths against
+the rendered depth (the JAX test's gates), and K1 at 1024x1024 every
+frame, exact on the first frame's descriptors. Phase 11 runs the same rig
+with ``rectify=True`` and 2 cm dense mapping over 60 frames (every frame
+OK, the ATE, K3 once per keyframe, the dense map) and then
+``disparity(method="sgm")`` on the first rectified pair (its valid share
+and median depth error against JAX's, its ms and dispatched operations,
+no K3 launch). Phase 12 drives RGB-D with ``dense_segmentation``
+(demo_inseg.py's configuration at bench width over the room orbit,
+``scripts/reference_inseg.py``): every frame OK, the ATE, the segmented
+voxels and segments, ``segment_depth``'s ms and operations a keyframe;
+then the dense library on the stored keyframes at their final poses
+(``DenseMapper(multi_res=True, carve_every=3, fixed_shapes=True)`` through
+``insert_keyframe_rgbd``): the fine and coarse occupied voxels, triangles
+and carved voxels against JAX's, the ESDF at 1000 wall points and the mesh
+normals against the room's walls. After each of phases 2-12, K1 is held
+exact against its plain version at every shape that phase launched and no
+earlier phase had checked.
 
 It prints one ``{"kernels": [...]}`` line and ends with one
 ``{"ok": true, "device": {...}}`` line. Any failed phase exits non-zero; so
@@ -225,6 +245,62 @@ REF_VI = {"init_keyframe": 13, "gravity_cos": 0.9998567699802123,
           "map": {"keyframes": 13, "points": 1848}, "vi_ba_ok": 11}
 VI_ATE_BOUND_M = max(1.5 * REF_VI["ate_rmse_m"], REF_VI["ate_rmse_m"] + 0.01)
 N_VI_FRAMES = 90
+
+# JAX package's figures on phase 10's run: the KB8 fisheye rig (CPU run of
+# JAX_PLATFORMS=cpu python scripts/reference_rig.py --phase 10, 90 frames,
+# 45 s: all OK). The port is held to the ATE bound below, its live
+# keyframes and points within +-25% of these, and on the first frame to
+# tests/test_stereo_rig.py's gates (>= 100 triangulated, |median relative
+# depth error| < 0.02, median |error| < 0.08).
+REF_RIG = {"ate_rmse_m": 0.014033678309171937,
+           "map": {"keyframes": 12, "points": 1352}, "keyframes_made": 18,
+           "first_frame": {"triangulated": 542,
+                           "median_rel_err": 0.002783536911010742,
+                           "median_abs_rel_err": 0.0468568429350853}}
+RIG_ATE_BOUND_M = max(1.5 * REF_RIG["ate_rmse_m"], REF_RIG["ate_rmse_m"] + 0.01)
+N_RIG_FRAMES = 90
+# JAX package's figures on phase 11's run: the same rig with rectify=True
+# and 2 cm dense mapping (CPU run of JAX_PLATFORMS=cpu python
+# scripts/reference_rig.py --phase 11, 60 frames, 47 s: all OK, 12
+# keyframes made; the fine volume fills its 8192 blocks). The port is held
+# to the ATE bound below, one K3 launch per keyframe made, the occupied
+# voxels and mesh triangles within +-25% of these (the JAX package's CPU
+# path computes disparity with its jnp volume, K3 has the TPU kernel's
+# border semantics), the median |z - 3 m| within the JAX value + 2 cm (phase
+# 3's limit), and SGM on the first rectified pair to JAX's valid share
+# +-0.01 and median |depth - 3 m| + 5 mm (JAX on the CPU: 8.2 s).
+REF_RECT = {"ate_rmse_m": 0.006370806206753382,
+            "map": {"keyframes": 8, "points": 1008}, "keyframes_made": 12,
+            "occupied_voxels": 198741, "mesh_triangles_full": 202648,
+            "median_abs_dz_m": 0.06999993324279785,
+            "sgm_first_pair": {"valid_share": 0.6937890625,
+                               "median_abs_depth_err_m": 0.15798723697662354}}
+RECT_ATE_BOUND_M = max(1.5 * REF_RECT["ate_rmse_m"],
+                       REF_RECT["ate_rmse_m"] + 0.01)
+N_RECT_FRAMES = 60
+# JAX package's figures on phase 12's run: demo_inseg.py's configuration
+# at bench width over phase 5's room (no depth noise) on
+# orbit_loop_trajectory(60, radius=0.6, laps=0.5) (CPU run of
+# JAX_PLATFORMS=cpu python scripts/reference_inseg.py, 72 s: all OK, 14
+# keyframes, no loop; the segmentation links the room's inside corners, so
+# one segment holds confidence >= 2), then the library check on the stored
+# keyframes at their final poses (61 s). The port is held to the ATE bound
+# below, the segmented surface voxels and the segments at confidence >= 2
+# within +-25% of these, one segmentation per dense keyframe; the
+# library's fine and coarse occupied voxels, triangles and carved voxels
+# within +-25%, the ESDF's median at 1000 wall points within one voxel and
+# the mesh normals' median cosine to the walls over 0.9.
+REF_SEG = {"ate_rmse_m": 0.01740683263875813, "first_ok": 1,
+           "map": {"keyframes": 14, "points": 3584}, "loops": 0,
+           "segmented_voxels": 325471, "labelled_voxels": 299653,
+           "segments_conf2": 1, "next_global": 7,
+           "library": {"fine_occupied": 197837, "coarse_occupied": 4623,
+                       "triangles": 369874, "carved_voxels": 287402,
+                       "esdf_grid": [223, 157, 317], "esdf_median_m": 0.0,
+                       "normals_median_cos": 0.9999128580093384}}
+SEG_ATE_BOUND_M = max(1.5 * REF_SEG["ate_rmse_m"],
+                      REF_SEG["ate_rmse_m"] + 0.01)
+N_SEG_FRAMES = 60
 
 N_FRAMES = 120
 # K1's (Q, K) shapes on phase 2's path
@@ -1328,6 +1404,407 @@ def _phase9(torch, cam, k1_ms_at: dict, words) -> dict:
             "init_kf": run["init_kf"], **out}
 
 
+def _rig_frames(synthetic, cameras, n: int):
+    """Phases 10-11's scene: phase 2's wall and poses seen through the KB8
+    fisheye pair at 640x480; returns (cam_l, cam_r, T_c1_c2, rig, frames
+    [(ts, left, right, R, t)])."""
+    size = dict(width=640, height=480)
+    cam_l = cameras.kannala_brandt8(*synthetic.RIG_KB8_LEFT, **size)
+    cam_r = cameras.kannala_brandt8(*synthetic.RIG_KB8_RIGHT, **size)
+    T = synthetic.rig_extrinsic()
+    rig = synthetic.SyntheticRig(
+        cam_l, cam_r, T, wall_z=WALL_Z, texture=synthetic.make_structured_texture(
+            2048, rng=np.random.default_rng(7)), tex_scale=420.0)
+    poses = synthetic.default_trajectory(N_FRAMES)[:n]
+    return cam_l, cam_r, T, rig, list(rig.sequence(poses))
+
+
+def _rig_flags(**kw) -> dict:
+    """Phases 10-11's SystemConfig: stereo, local BA with fixed BA shapes,
+    no loop closing, no lines, synchronous."""
+    return dict(dict(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
+                     max_pts=65536, use_lines=False, sensor="stereo",
+                     local_ba=True, loop_closing=False,
+                     backend_fixed_shapes=True, max_kf_interval=5,
+                     pipelined=False), **kw)
+
+
+def _track_stereo_run(torch, system, frames, brackets) -> dict:
+    """Track ``frames`` synchronously with K1 bracketed; returns the states,
+    the per-frame ms (synchronised), the launches, K1's launches by shape
+    and their bracketed device ms by shape."""
+    from plvs_tpu_torch.ops import cc_labels, hamming, stereo
+
+    hamming.launches = cc_labels.launches = stereo.launches = 0
+    hamming.shapes.clear()
+    states, ms = [], []
+    with brackets.run():
+        for ts, gl, gr, _, _ in frames:
+            t1 = time.perf_counter()
+            state, _, _ = system.track_stereo(gl, gr, ts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            states.append(int(state))
+    return {"states": states, "ms": np.asarray(ms),
+            "launches": {"hamming": hamming.launches,
+                         "cc_labels": cc_labels.launches,
+                         "stereo_wta": stereo.launches},
+            "mix": dict(hamming.shapes), "by_shape": brackets.ms_by_shape()}
+
+
+def _phase10(torch, brackets, k1_ms_at: dict, words) -> dict:
+    """Slice 9's rig path: the non-rectified KB8 fisheye pair through
+    ``System.track_stereo`` (``cam2`` / ``T_c1_c2``); returns the launches,
+    K1's device ms over the run and the largest K1 error."""
+    from plvs_tpu_torch.features import orb
+    from plvs_tpu_torch.geometry import cameras
+    from plvs_tpu_torch.io import evaluation, synthetic
+    from plvs_tpu_torch.ops import hamming
+    from plvs_tpu_torch.slam import System, SystemConfig
+    from plvs_tpu_torch.slam import frame as frame_mod
+    from plvs_tpu_torch.slam.tracking import OK
+
+    dev = torch.device("cuda")
+    cam_l, cam_r, T, rig, frames = _rig_frames(synthetic, cameras,
+                                               N_RIG_FRAMES)
+    R_lr = torch.from_numpy(T[:3, :3].copy()).to(dev)
+    t_lr = torch.from_numpy(T[:3, 3].copy()).to(dev)
+    # the first frame against the rendered depth (tests/test_stereo_rig.py's
+    # gates), and K1 exact on its left x right descriptors
+    gl0, gr0, depth0 = rig.render(frames[0][3], frames[0][4])
+    gl_d, gr_d = torch.from_numpy(gl0).to(dev), torch.from_numpy(gr0).to(dev)
+    fr = frame_mod.build_frame_stereo_rig(gl_d, gr_d, cam_l, cam_r, R_lr,
+                                          t_lr, 1024, 8, 1.2)
+    d = fr.depth.cpu().numpy()
+    xy = fr.kp.xy.cpu().numpy()
+    ok = d > 0
+    xi = np.clip(np.round(xy[ok, 0]).astype(int), 0, 639)
+    yi = np.clip(np.round(xy[ok, 1]).astype(int), 0, 479)
+    rel = (d[ok] - depth0[yi, xi]) / depth0[yi, xi]
+    kp_l = orb.extract(gl_d, 1024, 8, 1.2)
+    kp_r = orb.extract(gr_d, 1024, 8, 1.2)
+    got = hamming.hamming_matrix(kp_l.desc, kp_r.desc)
+    ref = hamming.hamming_plain(kp_l.desc, kp_r.desc)
+    torch.cuda.synchronize()
+    desc_err = int((got - ref).abs().max())
+    print(f"phase 10: first frame: {int(ok.sum())} triangulated matches, "
+          f"median relative depth error {np.median(rel):.6f}, median |error| "
+          f"{np.median(np.abs(rel)):.6f} (JAX {REF_RIG['first_frame']}); K1 "
+          f"on its {tuple(got.shape)} left x right descriptors: max_abs_err "
+          f"{desc_err}")
+
+    system = System(cam_l, SystemConfig(**_rig_flags()), device="cuda",
+                    cam2=cam_r, T_c1_c2=T)
+    run = _track_stereo_run(torch, system, frames, brackets)
+    launches, mix = run["launches"], run["mix"]
+    est = system.trajectory_tum()[:, 1:4]
+    gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
+    ate = evaluation.ate_rmse(est, gt, align=True)
+    stats = system.map_statistics()
+    steady = run["ms"][1:]
+    print(f"phase 10: {N_RIG_FRAMES} KB8 rig pairs 640x480 (local BA, fixed "
+          f"BA shapes), per-frame ms p50 {np.percentile(steady, 50):.2f} p90 "
+          f"{np.percentile(steady, 90):.2f} (first frame {run['ms'][0]:.1f}; "
+          f"keyframe frames include the synchronised backend); map {stats}, "
+          f"keyframes made {system.store._next_kf_uid} (JAX {REF_RIG['map']}, "
+          f"{REF_RIG['keyframes_made']} made); ATE-RMSE {ate:.6f} m (JAX "
+          f"{REF_RIG['ate_rmse_m']:.6f} m, bound {RIG_ATE_BOUND_M:.6f} m); "
+          f"launches {launches}")
+    print("phase 10: K1 launches by Q x K: " + ", ".join(
+        f"{q}x{k} {n}" for (q, k), n in sorted(mix.items())))
+    err = max(desc_err, _hold_k1(torch, hamming, words, k1_ms_at, mix, 10))
+    dev_ms = _k1_report(10, "over the run", run["by_shape"], k1_ms_at,
+                        brackets)[0]
+    if not all(s_ == OK for s_ in run["states"][1:]):
+        _fail(f"phase 10 tracking states {run['states']}")
+    if not np.isfinite(est).all() or ate > RIG_ATE_BOUND_M:
+        _fail(f"phase 10 ATE {ate} m exceeds the bound {RIG_ATE_BOUND_M} m")
+    for key in ("keyframes", "points"):
+        if abs(stats[key] - REF_RIG["map"][key]) > 0.25 * REF_RIG["map"][key]:
+            _fail(f"phase 10 live {key} {stats[key]} not within 25% of "
+                  f"JAX's {REF_RIG['map'][key]}")
+    if not (ok.sum() >= 100 and abs(np.median(rel)) < 0.02
+            and np.median(np.abs(rel)) < 0.08):
+        _fail(f"phase 10 first frame: {ok.sum()} matches, median relative "
+              f"error {np.median(rel)}, median |error| "
+              f"{np.median(np.abs(rel))}")
+    if mix.get((1024, 1024), 0) < len(frames) or desc_err:
+        _fail(f"phase 10: K1 at 1024x1024 launched {mix.get((1024, 1024))} "
+              f"times in {len(frames)} frames, error {desc_err}")
+    return {"launches": launches, "mix": mix, "k1_err": err,
+            "k1_device_ms": dev_ms}
+
+
+def _phase11(torch, brackets, k1_ms_at: dict, words) -> dict:
+    """Slice 9's rectified path: the same rig with ``rectify=True`` and 2 cm
+    dense mapping, then SGM on the first rectified pair; returns the
+    launches, K1's device ms and the SGM figures."""
+    from plvs_tpu_torch.dense import stereo_depth
+    from plvs_tpu_torch.geometry import cameras
+    from plvs_tpu_torch.io import evaluation, synthetic
+    from plvs_tpu_torch.ops import hamming, stereo
+    from plvs_tpu_torch.slam import System, SystemConfig
+    from plvs_tpu_torch.slam.tracking import OK
+    from plvs_tpu_torch.utils.profiling import Stopwatch
+
+    cam_l, cam_r, T, rig, frames = _rig_frames(synthetic, cameras,
+                                               N_RECT_FRAMES)
+    system = System(cam_l, SystemConfig(**_rig_flags(
+        rectify=True, dense_mapping=True, dense_voxel_size=0.02)),
+        device="cuda", cam2=cam_r, T_c1_c2=T)
+    watch = Stopwatch(sync_device=torch.device("cuda"))
+    system.set_stopwatch(watch)
+    run = _track_stereo_run(torch, system, frames, brackets)
+    launches, mix = run["launches"], run["mix"]
+    est = system.trajectory_tum()[:, 1:4]
+    gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
+    ate = evaluation.ate_rmse(est, gt, align=True)
+    stats = system.map_statistics()
+    n_made = system.store._next_kf_uid
+    dm = system.dense_mapper
+    pts, _ = dm.cloud()
+    med_dz = float(np.median(np.abs(pts[:, 2] - WALL_Z))) if len(pts) else 1e9
+    n_tri = len(dm.mesh()[1])
+    steady = run["ms"][1:]
+    per_kf = {k: sum(v) * 1e3 / max(n_made, 1)
+              for k, v in sorted(watch.samples.items())
+              if k.startswith("dense")}
+    print(f"phase 11: {N_RECT_FRAMES} rig pairs rectified to a {system.cam.fx}"
+          f" px pinhole (bf {system.cam.bf:.4f}) with 2 cm dense mapping, "
+          f"per-frame ms p50 {np.percentile(steady, 50):.2f} p90 "
+          f"{np.percentile(steady, 90):.2f} (first frame {run['ms'][0]:.1f});"
+          f" map {stats}, keyframes made {n_made} (JAX {REF_RECT['map']}); "
+          f"ATE-RMSE {ate:.6f} m (JAX {REF_RECT['ate_rmse_m']:.6f} m, bound "
+          f"{RECT_ATE_BOUND_M:.6f} m); launches {launches}")
+    print("phase 11: dense stage ms per keyframe "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per_kf.items())
+          + f"; {len(pts)} occupied voxels (JAX {REF_RECT['occupied_voxels']}),"
+          f" {n_tri} mesh triangles (JAX {REF_RECT['mesh_triangles_full']}), "
+          f"median |z - {WALL_Z}| {med_dz:.6f} m (JAX "
+          f"{REF_RECT['median_abs_dz_m']:.6f})")
+    err = _hold_k1(torch, hamming, words, k1_ms_at, mix, 11)
+    dev_ms = _k1_report(11, "over the run", run["by_shape"], k1_ms_at,
+                        brackets)[0]
+    if not all(s_ == OK for s_ in run["states"][1:]):
+        _fail(f"phase 11 tracking states {run['states']}")
+    if not np.isfinite(est).all() or ate > RECT_ATE_BOUND_M:
+        _fail(f"phase 11 ATE {ate} m exceeds the bound {RECT_ATE_BOUND_M} m")
+    if launches["stereo_wta"] != n_made:
+        _fail(f"K3 launched {launches['stereo_wta']} times for {n_made} "
+              "keyframes in phase 11")
+    for name, got, ref in (("occupied voxels", len(pts),
+                            REF_RECT["occupied_voxels"]),
+                           ("mesh triangles", n_tri,
+                            REF_RECT["mesh_triangles_full"])):
+        if abs(got - ref) > 0.25 * ref:
+            _fail(f"phase 11 {name} {got} not within 25% of JAX's {ref}")
+    if med_dz > REF_RECT["median_abs_dz_m"] + 0.02:
+        _fail(f"phase 11 median |z - {WALL_Z}| {med_dz} m: the wall is off")
+
+    # SGM on the first rectified pair: plain PyTorch on the card, never K3
+    rl, rr = system.rectifier(frames[0][1], frames[0][2])
+    stereo.launches = 0
+    stereo_depth.disparity(rl, rr, max_disp=64, method="sgm")   # warm-up
+    torch.cuda.synchronize()
+    sgm_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        disp = stereo_depth.disparity(rl, rr, max_disp=64, method="sgm")
+        torch.cuda.synchronize()
+        sgm_ms.append((time.perf_counter() - t1) * 1e3)
+    sgm_ops = _count_ops(torch, lambda: stereo_depth.disparity(
+        rl, rr, max_disp=64, method="sgm"))
+    valid = (disp > 0).cpu().numpy()
+    depth = stereo_depth.disparity_to_depth(disp, system.cam.bf).cpu().numpy()
+    share = float(valid.mean())
+    dz = float(np.median(np.abs(depth[valid] - WALL_Z)))
+    ref_sgm = REF_RECT["sgm_first_pair"]
+    print(f"phase 11: SGM (method='sgm', D = 64) on the first rectified "
+          f"pair: valid share {share:.6f} (JAX {ref_sgm['valid_share']:.6f}),"
+          f" median |depth - {WALL_Z}| {dz:.6f} m (JAX "
+          f"{ref_sgm['median_abs_depth_err_m']:.6f}); {np.median(sgm_ms):.2f}"
+          f" ms a call (median of 3, synchronised), {sgm_ops} dispatched "
+          f"non-view operations; K3 launched {stereo.launches} times by it")
+    if stereo.launches:
+        _fail("SGM launched K3")
+    if abs(share - ref_sgm["valid_share"]) > 0.01:
+        _fail(f"phase 11 SGM valid share {share} against JAX's "
+              f"{ref_sgm['valid_share']}")
+    if dz > ref_sgm["median_abs_depth_err_m"] + 0.005:
+        _fail(f"phase 11 SGM median |depth - {WALL_Z}| {dz} m against JAX's "
+              f"{ref_sgm['median_abs_depth_err_m']}")
+    return {"launches": launches, "mix": mix, "k1_err": err,
+            "k1_device_ms": dev_ms, "sgm_ms": float(np.median(sgm_ms)),
+            "sgm_ops": sgm_ops}
+
+
+def _carve_counter(vol, log: list):
+    """Wrap ``vol.remove_unstable`` so each call appends the voxels it
+    cleared (weights that went to 0) to ``log``."""
+    carve = vol.remove_unstable
+
+    def counted(*a, **kw):
+        before = int((vol.weight > 0).sum())
+        carve(*a, **kw)
+        log.append(before - int((vol.weight > 0).sum()))
+
+    vol.remove_unstable = counted
+
+
+def _phase12(torch, cam, k1_ms_at: dict, words) -> dict:
+    """Slice 9's segmentation path: demo_inseg.py's configuration at bench
+    width (dense mapping with dense_segmentation, 2 cm voxels, local BA and
+    loop closing) over the room orbit, then the dense library on the
+    stored keyframes at their final poses: the far field, carving, the
+    ESDF and the mesh normals; returns the launches and the new
+    operations' figures."""
+    from plvs_tpu_torch.dense import esdf, processing
+    from plvs_tpu_torch.dense.mapping import DenseMapper
+    from plvs_tpu_torch.dense.meshing import marching_tetrahedra
+    from plvs_tpu_torch.io import evaluation, synthetic
+    from plvs_tpu_torch.ops import cc_labels, hamming, stereo
+    from plvs_tpu_torch.slam import System, SystemConfig
+    from plvs_tpu_torch.slam.tracking import OK
+
+    room = synthetic.SyntheticRoom(cam, half=3.0, tex_size=2048, seed=3)
+    poses = synthetic.orbit_loop_trajectory(N_SEG_FRAMES, radius=0.6,
+                                            laps=0.5)
+    frames = list(room.sequence(poses))
+    system = System(cam, SystemConfig(
+        num_features=1024, n_levels=8, scale=1.2, max_kf=256, max_pts=65536,
+        use_lines=False, local_ba=True, loop_closing=True,
+        dense_mapping=True, dense_segmentation=True, dense_voxel_size=0.02,
+        pipelined=False), device="cuda")
+    seg_log = []
+    segment = processing.segment_depth
+
+    def timed_segment(*a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = segment(*a, **kw)
+        torch.cuda.synchronize()
+        seg_log.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    processing.segment_depth = timed_segment
+    hamming.launches = cc_labels.launches = stereo.launches = 0
+    hamming.shapes.clear()
+    states, ms = [], []
+    try:
+        for ts, g, d, _, _ in frames:
+            t1 = time.perf_counter()
+            state, _, _ = system.track_rgbd(g, d, ts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            states.append(int(state))
+    finally:
+        processing.segment_depth = segment
+    launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
+                "stereo_wta": stereo.launches}
+    mix = dict(hamming.shapes)
+    est = system.trajectory_tum()[:, 1:4]
+    gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
+    ate = evaluation.ate_rmse(est, gt, align=True)
+    stats = system.map_statistics()
+    dm = system.dense_mapper
+    pts, lab = dm.segment_cloud()
+    n_seg = int(len(np.unique(lab[lab > 0])))
+    kf0 = dm.keyframes[0]
+    seg_ops = _count_ops(torch, lambda: processing.segment_depth(
+        cam, processing.filter_depth(kf0.depth)))
+    steady = np.asarray(ms[1:])
+    print(f"phase 12: {N_SEG_FRAMES} RGB-D frames 640x480 of the room orbit "
+          f"with 3D segmentation (local BA, loop closing, 2 cm dense), "
+          f"per-frame ms p50 {np.percentile(steady, 50):.2f} p90 "
+          f"{np.percentile(steady, 90):.2f} (first frame {ms[0]:.1f}); map "
+          f"{stats}, keyframes made {system.store._next_kf_uid}, loops "
+          f"{len(system.loops_closed)} (JAX {REF_SEG['map']}, "
+          f"{REF_SEG['loops']} loops); ATE-RMSE {ate:.6f} m (JAX "
+          f"{REF_SEG['ate_rmse_m']:.6f} m, bound {SEG_ATE_BOUND_M:.6f} m); "
+          f"launches {launches}")
+    print(f"phase 12: segmentation: {len(pts)} segmented surface voxels "
+          f"(JAX {REF_SEG['segmented_voxels']}), {int((lab > 0).sum())} "
+          f"labelled at confidence >= 2 (JAX {REF_SEG['labelled_voxels']}), "
+          f"{n_seg} segments (JAX {REF_SEG['segments_conf2']}), next global "
+          f"id {dm.label_map.next_global} (JAX {REF_SEG['next_global']}); "
+          f"segment_depth per keyframe (synchronised) median "
+          f"{np.median(seg_log):.2f} ms over {len(seg_log)} keyframes, "
+          f"{seg_ops} dispatched non-view operations a call")
+    if not all(s_ == OK for s_ in states[REF_SEG["first_ok"]:]):
+        _fail(f"phase 12 tracking states {states}")
+    if not np.isfinite(est).all() or ate > SEG_ATE_BOUND_M:
+        _fail(f"phase 12 ATE {ate} m exceeds the bound {SEG_ATE_BOUND_M} m")
+    for name, got, ref in (
+            ("segmented voxels", len(pts), REF_SEG["segmented_voxels"]),
+            ("segments", n_seg, REF_SEG["segments_conf2"])):
+        if abs(got - ref) > 0.25 * ref:
+            _fail(f"phase 12 {name} {got} not within 25% of JAX's {ref}")
+    if len(seg_log) != len(dm.keyframes):
+        _fail(f"phase 12: {len(seg_log)} segmentations for "
+              f"{len(dm.keyframes)} dense keyframes")
+
+    # the dense library on the stored keyframes at their final poses
+    st = system.store
+    final = {k.kf_id: (st.kf_R[k.kf_id].copy(), st.kf_t[k.kf_id].copy())
+             for k in dm.keyframes if st.kf_mask[k.kf_id]}
+    lib = DenseMapper(cam, voxel_size=0.02, multi_res=True, split_depth=3.0,
+                      carve_every=3, fixed_shapes=True, device="cuda")
+    carved = []
+    _carve_counter(lib.volume, carved)
+    _carve_counter(lib.coarse, carved)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for k in dm.keyframes:
+        if k.kf_id in final:
+            lib.insert_keyframe_rgbd(k.kf_id, k.color, k.depth,
+                                     *final[k.kf_id])
+    torch.cuda.synchronize()
+    lib_ms = (time.perf_counter() - t1) * 1e3
+    fine = len(lib.volume.occupied_cloud()[0])
+    coarse = len(lib.coarse.occupied_cloud()[0])
+    n_tri = len(lib.mesh()[1])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    origin, grid, _ = esdf.esdf_from_tsdf(lib.volume)
+    torch.cuda.synchronize()
+    esdf_ms = (time.perf_counter() - t1) * 1e3
+    esdf_ops = _count_ops(torch, lambda: esdf.esdf_from_tsdf(lib.volume))
+    q = evaluation.depth_samples(
+        [(k.kf_id, k.depth.cpu().numpy()) for k in dm.keyframes], final,
+        cam, 1000, 2.9)
+    d_q = esdf.query_esdf(origin, grid, lib.volume.voxel_size, q)
+    V, _ = marching_tetrahedra(lib.volume)
+    V = V[np.random.default_rng(0).choice(len(V), min(len(V), 5000),
+                                          replace=False)]
+    R0, t0 = poses[0]   # the map is built in the first camera's frame
+    cos = np.sum((lib.mesh_normals(V) @ R0)
+                 * room.wall_normals((V - t0) @ R0), -1)
+    ref_lib = REF_SEG["library"]
+    got = {"fine_occupied": fine, "coarse_occupied": coarse,
+           "triangles": n_tri, "carved_voxels": int(sum(carved))}
+    print(f"phase 12: library on {len(final)} keyframes (multi_res, split "
+          f"3 m, carve every 3, fixed shapes): {got} (JAX "
+          f"{ {k: ref_lib[k] for k in got} }), inserts {lib_ms:.2f} ms; ESDF "
+          f"grid {list(grid.shape)} (JAX {ref_lib['esdf_grid']}) in "
+          f"{esdf_ms:.2f} ms (synchronised), {esdf_ops} dispatched non-view "
+          f"operations; ESDF at 1000 wall points median {np.median(d_q):.6f}"
+          f" m (JAX {ref_lib['esdf_median_m']:.6f}); mesh normals' median "
+          f"cosine to the walls {np.median(cos):.6f} (JAX "
+          f"{ref_lib['normals_median_cos']:.6f})")
+    for key, val in got.items():
+        if abs(val - ref_lib[key]) > 0.25 * ref_lib[key]:
+            _fail(f"phase 12 library {key} {val} not within 25% of JAX's "
+                  f"{ref_lib[key]}")
+    if not np.median(d_q) <= lib.volume.voxel_size:
+        _fail(f"phase 12 ESDF median {np.median(d_q)} m at wall points")
+    if not np.median(cos) > 0.9:
+        _fail(f"phase 12 mesh normals' median cosine {np.median(cos)}")
+    err = _hold_k1(torch, hamming, words, k1_ms_at, mix, 12)
+    return {"launches": launches, "mix": mix, "k1_err": err,
+            "seg_ms": float(np.median(seg_log)), "seg_ops": seg_ops,
+            "esdf_ms": esdf_ms, "esdf_ops": esdf_ops}
+
+
 def main() -> int:
     import torch
 
@@ -1629,12 +2106,18 @@ def main() -> int:
     run7 = _phase7(torch, cam, scene, brackets, k1_ms_at, words)
     run8 = _phase8(torch, cam, k1_ms_at, words, run5["closing_ms"])
     run9 = _phase9(torch, cam, k1_ms_at, words)
+    run10 = _phase10(torch, brackets, k1_ms_at, words)
+    run11 = _phase11(torch, brackets, k1_ms_at, words)
+    run12 = _phase12(torch, cam, k1_ms_at, words)
     launches5, launches6 = run5["launches"], run6["launches"]
     launches7, launches8 = run7["launches"], run8["launches"]
     launches9 = run9["launches"]
+    later = {10: run10["launches"], 11: run11["launches"],
+             12: run12["launches"]}
     k1_err = max(k1_err, launches3["k1_err"], launches4["k1_err"],
                  run5["k1_err"], run6["k1_err"], run7["k1_err"],
-                 run8["k1_err"], run9["k1_err"])
+                 run8["k1_err"], run9["k1_err"], run10["k1_err"],
+                 run11["k1_err"], run12["k1_err"])
 
     kernels = [
         {"name": "hamming_matrix", "route": "cuda",
@@ -1655,7 +2138,10 @@ def main() -> int:
          "device_ms_phase4": launches4["k1_device_ms"],
          "device_ms_phase5": run5["k1_device_ms"],
          "device_ms_phase6": run6["k1_device_ms"],
-         "device_ms_phase7": run7["k1_device_ms"]},
+         "device_ms_phase7": run7["k1_device_ms"],
+         **{f"launches_phase{p}": v["hamming"] for p, v in later.items()},
+         "device_ms_phase10": run10["k1_device_ms"],
+         "device_ms_phase11": run11["k1_device_ms"]},
         {"name": "cc_min_labels", "route": "cuda",
          "source": "plvs_tpu_torch/csrc/cc_labels.cu",
          "replaces": "plvs_tpu/ops/cc_labels.py:95",
@@ -1668,7 +2154,8 @@ def main() -> int:
          "launches_phase6": launches6["cc_labels"],
          "launches_phase7": launches7["cc_labels"],
          "launches_phase8": launches8["cc_labels"],
-         "launches_phase9": launches9["cc_labels"]},
+         "launches_phase9": launches9["cc_labels"],
+         **{f"launches_phase{p}": v["cc_labels"] for p, v in later.items()}},
         {"name": "disparity_wta", "route": "cuda",
          "source": "plvs_tpu_torch/csrc/stereo_wta.cu",
          "replaces": "plvs_tpu/ops/stereo.py:161",
@@ -1680,7 +2167,8 @@ def main() -> int:
          "launches_phase6": launches6["stereo_wta"],
          "launches_phase7": launches7["stereo_wta"],
          "launches_phase8": launches8["stereo_wta"],
-         "launches_phase9": launches9["stereo_wta"]},
+         "launches_phase9": launches9["stereo_wta"],
+         **{f"launches_phase{p}": v["stereo_wta"] for p, v in later.items()}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ angle weights and the LBD pairs (regenerated from the same seeds in
 the keyframe database and the dense volume. The functions here rebuild the
 camera, a vocabulary, the map, the database's per-keyframe word lists, a
 bundle-adjustment problem, a pose-graph problem, the inertial runtime's
-state (its preintegrations among it) and the TSDF volume from
-plain numpy data, so state built by plvs_tpu can be carried on by
+state (its preintegrations among it), the TSDF volume (labels included)
+and the dense mapper (both volumes, the label map, the stored keyframes)
+from plain numpy data, so state built by plvs_tpu can be carried on by
 plvs_tpu_torch (the tests track one frame against an identical map, run one
 keyframe backend pass, one loop-closer pass, one bundle adjustment and one
 pose graph on identical inputs, and integrate and mesh an identical
@@ -19,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .dense.mapping import DenseKeyFrame, DenseMapper
+from .dense.meshing import IncrementalMesher
 from .dense.tsdf import TSDFVolume
 from .geometry import cameras
 from .imu import preintegration as pre
@@ -167,22 +170,72 @@ def inertial_runtime_from_numpy(state: dict, device="cuda",
     return rt
 
 
+def tsdf_state(vol) -> dict:
+    """The state :func:`tsdf_volume_from_numpy` takes, read from a volume
+    of either package (full-capacity host arrays; labels where the volume
+    keeps them)."""
+    out = dict(block_coords=vol.block_coords, n_blocks=vol.n_blocks,
+               block_map=vol.block_map, tsdf=vol.tsdf, weight=vol.weight,
+               color=vol.color, block_version=vol.block_version,
+               frame_idx=vol.frame_idx)
+    if hasattr(vol, "block_alloc_frame"):
+        out["block_alloc_frame"] = vol.block_alloc_frame
+    if getattr(vol, "with_labels", False):
+        out.update(label=vol.label, label_conf=vol.label_conf)
+    return out
+
+
 def tsdf_volume_from_numpy(cam: cameras.Camera, arrays: dict,
                            device="cuda", **kw) -> TSDFVolume:
     """A port TSDFVolume from the JAX TSDFVolume's state: ``block_coords``,
     ``n_blocks``, ``block_map``, ``tsdf``, ``weight``, ``color`` (full
-    capacity, numpy), ``block_version`` and ``frame_idx``; ``kw`` are the
-    volume's settings (voxel_size, ...), its capacity that of the
-    arrays."""
+    capacity, numpy), ``block_version``, ``frame_idx`` and, where given,
+    ``block_alloc_frame`` and the voxel labels (``label``, ``label_conf``:
+    the volume then keeps labels); ``kw`` are the volume's settings
+    (voxel_size, ...), its capacity that of the arrays."""
+    kw.setdefault("with_labels", "label" in arrays)
     vol = TSDFVolume(cam, max_blocks=arrays["block_coords"].shape[0],
                      device=device, **kw)
     vol.n_blocks = int(arrays["n_blocks"])
     vol.block_map = {tuple(int(v) for v in k): int(i)
                      for k, i in arrays["block_map"].items()}
     vol.frame_idx = int(arrays["frame_idx"])
-    for name in ("block_coords", "block_version"):
-        cur = getattr(vol, name)
-        setattr(vol, name, np.array(arrays[name], dtype=cur.dtype, copy=True))
-    for name in ("tsdf", "weight", "color"):
-        vol._dev[name].copy_(vol._put(np.array(arrays[name], np.float32)))
+    for name in ("block_coords", "block_version", "block_alloc_frame"):
+        if name in arrays:
+            cur = getattr(vol, name)
+            setattr(vol, name, np.array(arrays[name], dtype=cur.dtype,
+                                        copy=True))
+    for name in ("tsdf", "weight", "color", "label", "label_conf"):
+        if name in vol._dev:
+            full = vol._dev[name]
+            full.copy_(vol._put(np.asarray(arrays[name]), full.dtype))
     return vol
+
+
+def dense_mapper_from_numpy(cam: cameras.Camera, state: dict,
+                            device="cuda", **kw):
+    """A port DenseMapper carrying a JAX DenseMapper's state: ``volume``
+    and ``coarse`` (``tsdf_state`` dicts, ``coarse`` None without the far
+    field), ``next_global`` (the label map's next id), ``labels`` ({kf_id:
+    global label image}), ``keyframes`` ([(kf_id, raw depth, color)]) and
+    ``n_inserted``; ``kw`` are the mapper's settings. The incremental
+    mesher starts empty."""
+    dm = DenseMapper(cam, device=device, **kw)
+    dm.volume = tsdf_volume_from_numpy(
+        cam, state["volume"], device=device, voxel_size=dm.voxel_size,
+        bucket_floor=dm.volume.bucket_floor,
+        with_labels=dm.use_segmentation)
+    dm.mesher = IncrementalMesher(dm.volume)
+    if state.get("coarse") is not None:
+        dm.coarse = tsdf_volume_from_numpy(
+            cam, state["coarse"], device=device,
+            voxel_size=dm.coarse.voxel_size, max_depth=dm.coarse.max_depth)
+    if dm.use_segmentation:
+        dm.label_map.next_global = int(state["next_global"])
+    dm.labels = {int(k): np.array(v, np.int32, copy=True)
+                 for k, v in state.get("labels", {}).items()}
+    dm.keyframes = [DenseKeyFrame(int(k), dm.volume._put(d),
+                                  dm.volume._put(c))
+                    for k, d, c in state.get("keyframes", [])]
+    dm._n_inserted = int(state.get("n_inserted", len(dm.keyframes)))
+    return dm

@@ -224,6 +224,38 @@ def marching_tetrahedra(volume: TSDFVolume, min_weight: float = 1.0):
     return V, F
 
 
+def sample_tsdf(volume: TSDFVolume, pts: np.ndarray) -> np.ndarray:
+    """Nearest-voxel TSDF value at world points [N, 3] (1.0 where the block
+    is unallocated); the gather runs on the device."""
+    out = np.ones(len(pts), np.float32)
+    if volume.n_blocks == 0 or len(pts) == 0:
+        return out
+    volume.flush_touched()
+    slot, vox = volume._voxel_slots(pts)
+    ok = slot >= 0
+    if ok.any():
+        i = torch.from_numpy(np.stack([slot[ok], vox[ok, 2], vox[ok, 1],
+                                       vox[ok, 0]])).to(volume.device)
+        out[ok] = to_host(volume._dev["tsdf"][i[0], i[1], i[2], i[3]])
+    return out
+
+
+def vertex_normals(volume: TSDFVolume, V: np.ndarray) -> np.ndarray:
+    """Per-vertex surface normals from the TSDF gradient (central
+    differences at one-voxel spacing), pointing from inside (tsdf < 0)
+    toward free space."""
+    if len(V) == 0:
+        return np.zeros((0, 3), np.float32)
+    h = volume.voxel_size
+    g = np.empty((len(V), 3), np.float32)
+    for a in range(3):
+        e = np.zeros(3, np.float32)
+        e[a] = h
+        g[:, a] = sample_tsdf(volume, V + e) - sample_tsdf(volume, V - e)
+    nrm = np.linalg.norm(g, axis=1, keepdims=True)
+    return (g / np.maximum(nrm, 1e-12)).astype(np.float32)
+
+
 class IncrementalMesher:
     """Per-block cached meshing: only blocks whose TSDF changed since their
     last extraction (or whose +x/+y/+z neighbour changed — the padded seam

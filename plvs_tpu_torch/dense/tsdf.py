@@ -4,15 +4,18 @@ Counterpart of plvs_tpu/dense/tsdf.py. Fixed-capacity 8^3 voxel blocks hold
 tsdf / weight / color; every voxel of every live block projects into the
 depth image, gathers the measured depth, and takes the weighted TSDF
 running average in one batched pass (a gather, so no scatter collisions).
-Which blocks exist is host-side set arithmetic (numpy), as in JAX.
+Which blocks exist is host-side set arithmetic (numpy), as in JAX. With
+``with_labels`` each voxel also holds a global segment label and its
+confidence counter, fused by the same projective gather
+(``integrate_labels``); ``remove_unstable`` carves voxels of old blocks
+that never gathered enough weight.
 
 The volume's state stays on the device across frames. Where the JAX package
 donates its buffers to a jitted update and gets new ones back, the port
-updates ``tsdf`` / ``weight`` / ``color`` in place (slot ranges of the
-preallocated tensors), which needs no second copy of the volume.
-
-Per-voxel labels and unstable-voxel carving wait for ROADMAP.md queue 1
-(segmentation, and the rest of dense mapping).
+updates its tensors in place (slot ranges of the preallocated tensors),
+which needs no second copy of the volume. Queries that read a few voxels
+(``labels_at``) or the surface band (``occupied_cloud``,
+``segmented_cloud``) select on the device and fetch only the hits.
 """
 
 from __future__ import annotations
@@ -40,34 +43,44 @@ def _next_bucket(n: int, floor: int, cap: int) -> int:
     return min(b, cap)
 
 
+def _project_voxels(block_coords, Rcw, tcw, cam, voxel_size, H, W):
+    """Every voxel centre of ``B`` blocks in the camera: (uv [B, 512, 2],
+    z [B, 512], vi, ui [B, 512] clamped nearest pixel). Voxel n of a block
+    is (z, y, x) = (n // 64, n // 8 % 8, n % 8), the JAX package's
+    layout."""
+    S = BLOCK
+    dev = block_coords.device
+    f32 = torch.float32
+    r = ((torch.arange(S, device=dev).to(f32) + 0.5)
+         * torch.tensor(voxel_size, dtype=f32, device=dev))
+    zz, yy, xx = torch.meshgrid(r, r, r, indexing="ij")
+    offs = torch.stack([xx, yy, zz], -1).reshape(-1, 3)   # [S^3, 3] (x,y,z)
+    origin = block_coords.to(f32) * torch.tensor(S * voxel_size, dtype=f32,
+                                                  device=dev)
+    Xw = origin[:, None, :] + offs[None, :, :]
+    Xc = torch.einsum("ij,bnj->bni", Rcw, Xw) + tcw
+    uv = cam_mod.project(cam, Xc)
+    # torch.round, like jnp.round, rounds half to even
+    ui = torch.clamp(torch.round(uv[..., 0]).to(torch.int64), 0, W - 1)
+    vi = torch.clamp(torch.round(uv[..., 1]).to(torch.int64), 0, H - 1)
+    return uv, Xc[..., 2], vi, ui
+
+
 def _tsdf_update(block_coords, tsdf, weight, color, depth_img, color_img,
                  Rcw, tcw, cam, voxel_size, trunc, max_weight=100.0,
                  block_valid=None):
     """Projective TSDF update of ``B`` blocks against one depth frame.
     Returns (tsdf, weight, color) of the same shapes; the inputs are not
-    modified. Voxel n of a block is (z, y, x) = (n // 64, n // 8 % 8, n % 8),
-    the JAX package's layout."""
+    modified."""
     B = block_coords.shape[0]
-    S = BLOCK
     dev = tsdf.device
-    f32 = torch.float32
 
     def c(v):  # a float32 constant on the device: tensor-tensor arithmetic
-        return torch.tensor(v, dtype=f32, device=dev)
-
-    r = (torch.arange(S, device=dev).to(f32) + 0.5) * c(voxel_size)
-    zz, yy, xx = torch.meshgrid(r, r, r, indexing="ij")
-    offs = torch.stack([xx, yy, zz], -1).reshape(-1, 3)   # [S^3, 3] (x,y,z)
-    origin = block_coords.to(f32) * c(S * voxel_size)
-    Xw = origin[:, None, :] + offs[None, :, :]
-    Xc = torch.einsum("ij,bnj->bni", Rcw, Xw) + tcw
-    uv = cam_mod.project(cam, Xc)
-    z = Xc[..., 2]
+        return torch.tensor(v, dtype=torch.float32, device=dev)
 
     H, W = depth_img.shape
-    # torch.round, like jnp.round, rounds half to even
-    ui = torch.clamp(torch.round(uv[..., 0]).to(torch.int64), 0, W - 1)
-    vi = torch.clamp(torch.round(uv[..., 1]).to(torch.int64), 0, H - 1)
+    uv, z, vi, ui = _project_voxels(block_coords, Rcw, tcw, cam, voxel_size,
+                                    H, W)
     d = depth_img[vi, ui]
     col = color_img[vi, ui]
     if color_img.dim() == 2:
@@ -123,6 +136,40 @@ def _integrate_resident(coords_full, tsdf_full, weight_full, color_full,
     return changed
 
 
+def _label_update(block_coords, label, label_conf, depth_img, label_img, Rcw,
+                  tcw, cam, voxel_size, trunc, max_conf=64.0,
+                  block_valid=None):
+    """Per-voxel label confidence fusion of ``B`` blocks against one label
+    image, in the observation's surface band: observing the stored label
+    raises its confidence (up to ``max_conf``), a conflicting label lowers
+    it, and the label flips to the observed one once the confidence is
+    exhausted. Returns (label, label_conf); the inputs are not modified."""
+    B = block_coords.shape[0]
+    H, W = depth_img.shape
+    uv, z, vi, ui = _project_voxels(block_coords, Rcw, tcw, cam, voxel_size,
+                                    H, W)
+    d = depth_img[vi, ui]
+    lbl_new = label_img[vi, ui]
+    in_band = (cam_mod.in_image(cam, uv) & (z > 0.05) & (d > 0.0)
+               & ((d - z).abs() < trunc) & (lbl_new > 0))
+    if block_valid is not None:
+        in_band = in_band & block_valid[:, None]
+    l_old = label.reshape(B, -1)
+    c_old = label_conf.reshape(B, -1)
+    same = l_old == lbl_new
+    unlabeled = l_old == 0
+    one = torch.ones_like(c_old)
+    c_out = torch.where(same, torch.clamp(c_old + 1.0, max=max_conf),
+                        c_old - 1.0)
+    c_out = torch.where(unlabeled, one, c_out)
+    flip = (~same) & (~unlabeled) & (c_out <= 0.0)
+    l_out = torch.where(unlabeled | flip, lbl_new, l_old)
+    c_out = torch.where(flip, one, c_out)
+    l_out = torch.where(in_band, l_out, l_old)
+    c_out = torch.where(in_band, c_out, c_old)
+    return l_out.reshape(label.shape), c_out.reshape(label_conf.shape)
+
+
 @dataclasses.dataclass
 class TSDFVolume:
     """Host-managed block table + device-batched integration."""
@@ -134,6 +181,7 @@ class TSDFVolume:
     depth_subsample: int = 4       # allocation raycast stride
     max_depth: float = 8.0
     bucket_floor: int = 512        # floor of the updated slot range
+    with_labels: bool = False      # per-voxel segment labels
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
@@ -142,16 +190,22 @@ class TSDFVolume:
         self.block_map: dict[tuple, int] = {}
         self.block_coords = np.zeros((self.max_blocks, 3), np.int32)
         self.n_blocks = 0
-        # per-block bookkeeping for incremental meshing: frame counter and
-        # last-changed version
+        # per-block bookkeeping for incremental meshing and unstable-voxel
+        # removal: frame counter, last-changed version, allocation frame
         self.frame_idx = 0
         self.block_version = np.zeros(self.max_blocks, np.int64)
+        self.block_alloc_frame = np.zeros(self.max_blocks, np.int64)
         dev = self.device
         self._dev = {
             "tsdf": torch.ones((self.max_blocks, S, S, S), device=dev),
             "weight": torch.zeros((self.max_blocks, S, S, S), device=dev),
             "color": torch.zeros((self.max_blocks, S, S, S, 3), device=dev),
         }
+        if self.with_labels:
+            self._dev["label"] = torch.zeros((self.max_blocks, S, S, S),
+                                             dtype=torch.int32, device=dev)
+            self._dev["label_conf"] = torch.zeros((self.max_blocks, S, S, S),
+                                                  device=dev)
         self._coords_d = None          # device copy, refreshed on allocation
         self._mirror: dict | None = None  # lazy host copy for queries
         self._alloc_rays = None        # cached subsampled unprojection rays
@@ -161,11 +215,13 @@ class TSDFVolume:
     def trunc(self):
         return self.trunc_factor * self.voxel_size
 
-    def _put(self, x) -> torch.Tensor:
-        """float32 on the volume's device (device tensors stay put)."""
+    def _put(self, x, dtype=torch.float32) -> torch.Tensor:
+        """``dtype`` (float32 by default) on the volume's device (device
+        tensors stay put)."""
         if isinstance(x, torch.Tensor):
-            return x.to(self.device, torch.float32)
-        return torch.from_numpy(np.asarray(x, np.float32)).to(self.device)
+            return x.to(self.device, dtype)
+        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        return torch.from_numpy(np.asarray(x, np_dtype)).to(self.device)
 
     # -- host views (read-only; pulled lazily, invalidated by integrate) ----
     def _pull(self):
@@ -186,8 +242,18 @@ class TSDFVolume:
     def color(self):
         return self._pull()["color"]
 
-    def load_state(self, block_coords, tsdf, weight, color):
-        """Replace the volume contents (checkpoint restore path)."""
+    @property
+    def label(self):
+        return self._pull()["label"]
+
+    @property
+    def label_conf(self):
+        return self._pull()["label_conf"]
+
+    def load_state(self, block_coords, tsdf, weight, color, label=None,
+                   label_conf=None):
+        """Replace the volume contents (checkpoint restore path); labels
+        only where the volume keeps them."""
         n = len(block_coords)
         assert n <= self.max_blocks
         self.n_blocks = n
@@ -198,11 +264,16 @@ class TSDFVolume:
         self.frame_idx = 1
         self.block_version[:] = 0
         self.block_version[:n] = 1
+        self.block_alloc_frame[:] = 0
         for key, init, val in (("tsdf", 1.0, tsdf), ("weight", 0.0, weight),
-                               ("color", 0.0, color)):
+                               ("color", 0.0, color), ("label", 0, label),
+                               ("label_conf", 0.0, label_conf)):
+            if key not in self._dev:
+                continue
             full = self._dev[key]
             full.fill_(init)
-            full[:n] = self._put(val)
+            if val is not None:
+                full[:n] = self._put(val, full.dtype)
         self._coords_d = None
         self._mirror = None
         self._pending_touch = []
@@ -249,6 +320,7 @@ class TSDFVolume:
             i = self.n_blocks
             self.block_map[c] = i
             self.block_coords[i] = c
+            self.block_alloc_frame[i] = self.frame_idx
             self.n_blocks += 1
         if self.n_blocks != n0:
             self._coords_d = None  # device copy stale
@@ -311,6 +383,100 @@ class TSDFVolume:
             if len(idx):
                 self.block_version[idx] = fidx
 
+    def _mark_touched(self, Rcw: np.ndarray, tcw: np.ndarray, changed=None):
+        """Bump the version of the blocks an integration pass changed:
+        exactly those of ``changed`` (the per-block mask of
+        _integrate_resident) when given, else every block within camera
+        range (centre in front of the camera, within ``max_depth``, both
+        widened by the block diagonal)."""
+        if changed is not None:
+            idx = np.nonzero(np.asarray(changed))[0]
+            if len(idx):
+                self.block_version[idx] = self.frame_idx
+            return
+        n = self.n_blocks
+        S = BLOCK
+        centers = (self.block_coords[:n].astype(np.float32) + 0.5) * (
+            S * self.voxel_size)
+        Xc = centers @ Rcw.T + tcw
+        diag = S * self.voxel_size * np.sqrt(3.0)
+        touched = (Xc[:, 2] > -diag) & (
+            np.linalg.norm(Xc, axis=1) < self.max_depth + diag)
+        self.block_version[:n][touched] = self.frame_idx
+
+    def remove_unstable(self, min_weight: float = 2.0, min_age: int = 3):
+        """Clear voxels that never accumulated ``min_weight`` in blocks at
+        least ``min_age`` frames old (tsdf 1, weight 0): sporadic depth
+        noise is dropped once it fails to be observed again."""
+        n = self.n_blocks
+        if n == 0:
+            return
+        old = (self.frame_idx - self.block_alloc_frame[:n]) >= min_age
+        d = self._dev
+        w = d["weight"][:n]
+        unstable = ((w > 0.0) & (w < min_weight)
+                    & torch.from_numpy(old).to(self.device)[:, None, None,
+                                                            None])
+        d["tsdf"][:n] = torch.where(unstable, torch.ones_like(w),
+                                    d["tsdf"][:n])
+        d["weight"][:n] = torch.where(unstable, torch.zeros_like(w), w)
+        self._mirror = None
+        self.block_version[:n][old] = self.frame_idx
+
+    def integrate_labels(self, depth, label_img, Rcw: np.ndarray,
+                         tcw: np.ndarray):
+        """Fuse one frame's global label image [H, W] (int32, 0 = none)
+        into the voxel labels (after ``integrate``, so the blocks exist)."""
+        assert self.with_labels
+        n = self.n_blocks
+        if n == 0:
+            return
+        if self._coords_d is None:
+            self._coords_d = torch.from_numpy(self.block_coords).to(
+                self.device)
+        nb = _next_bucket(n, 512, self.max_blocks)
+        d = self._dev
+        valid = torch.arange(nb, device=self.device) < n
+        lab, conf = _label_update(
+            self._coords_d[:nb], d["label"][:nb], d["label_conf"][:nb],
+            self._put(depth), self._put(label_img, torch.int32),
+            self._put(Rcw), self._put(tcw), self.cam, self.voxel_size,
+            self.trunc, block_valid=valid)
+        d["label"][:nb] = lab
+        d["label_conf"][:nb] = conf
+        self._mirror = None
+
+    def _voxel_slots(self, pts_world: np.ndarray):
+        """(block slot [N] int64, -1 where unallocated; voxel index [N, 3]
+        (x, y, z) in the block) of each world point."""
+        S = BLOCK
+        bs = S * self.voxel_size
+        bc = np.floor(pts_world / bs).astype(np.int32)
+        vox = np.floor(pts_world / self.voxel_size).astype(np.int32) - bc * S
+        vox = np.clip(vox, 0, S - 1)
+        uniq, inv = np.unique(bc, axis=0, return_inverse=True)
+        slot = np.array(
+            [self.block_map.get(tuple(c), -1) for c in uniq.tolist()],
+            np.int64)[inv.reshape(-1)]
+        return slot, vox
+
+    def labels_at(self, pts_world: np.ndarray) -> np.ndarray:
+        """Stored global label at each world point's voxel (0 where its
+        block is unallocated): the map side of the local-to-global label
+        association. The gather runs on the device."""
+        assert self.with_labels
+        out = np.zeros(len(pts_world), np.int32)
+        if self.n_blocks == 0 or len(pts_world) == 0:
+            return out
+        slot, vox = self._voxel_slots(pts_world)
+        ok = slot >= 0
+        if ok.any():
+            idx = torch.from_numpy(np.stack([slot[ok], vox[ok, 2],
+                                             vox[ok, 1], vox[ok, 0]]))
+            i = idx.to(self.device)
+            out[ok] = to_host(self._dev["label"][i[0], i[1], i[2], i[3]])
+        return out
+
     def reset(self):
         self.__post_init__()
 
@@ -331,6 +497,27 @@ class TSDFVolume:
             + (np.stack([xi, yi, zi], -1) + 0.5) * self.voxel_size
         )
         return centers.astype(np.float32), to_host(d["color"][:n][sel])
+
+    def segmented_cloud(self, tsdf_eps: float = 0.5, min_weight: float = 1.0,
+                        min_conf: float = 2.0):
+        """Surface voxel centroids + their global segment labels (labels
+        below the confidence floor read 0)."""
+        assert self.with_labels
+        n = self.n_blocks
+        if n == 0:
+            return np.zeros((0, 3), np.float32), np.zeros((0,), np.int32)
+        self.flush_touched()
+        S = BLOCK
+        d = self._dev
+        sel = (d["tsdf"][:n].abs() < tsdf_eps) & (d["weight"][:n] >= min_weight)
+        b, zi, yi, xi = to_host(torch.nonzero(sel)).T
+        centers = (
+            self.block_coords[:n][b] * (S * self.voxel_size)
+            + (np.stack([xi, yi, zi], -1) + 0.5) * self.voxel_size
+        ).astype(np.float32)
+        lab = d["label"][:n][sel]
+        keep = d["label_conf"][:n][sel] >= min_conf
+        return centers, to_host(torch.where(keep, lab, torch.zeros_like(lab)))
 
     def save_ply(self, path: str, max_points: int | None = None):
         pts, cols = self.occupied_cloud()

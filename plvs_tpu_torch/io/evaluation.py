@@ -1,5 +1,6 @@
-"""Trajectory evaluation: ATE-RMSE after rigid alignment (a copy of
-plvs_tpu/io/evaluation.py's umeyama_alignment / ate_rmse)."""
+"""Trajectory and map evaluation: ATE-RMSE after rigid alignment (a copy of
+plvs_tpu/io/evaluation.py's umeyama_alignment / ate_rmse), and surface
+points sampled from posed depth images."""
 
 from __future__ import annotations
 
@@ -32,3 +33,24 @@ def ate_rmse(est_xyz: np.ndarray, gt_xyz: np.ndarray, align: bool = True,
         est_xyz = (s * (R @ est_xyz.T)).T + t
     err = np.linalg.norm(est_xyz - gt_xyz, axis=-1)
     return float(np.sqrt((err ** 2).mean()))
+
+
+def depth_samples(depths, poses, cam, n: int, max_depth: float,
+                  seed: int = 0) -> np.ndarray:
+    """``n`` world points [n, 3] float32: random pixels (``seed``) of the
+    pinhole depth images ``depths`` [(key, [H, W])] nearer than
+    ``max_depth``, back-projected at ``poses`` ({key: (Rcw, tcw)}; keys
+    without a pose are skipped)."""
+    fx, fy, cx, cy = (float(v) for v in cam.params[:4])
+    pts = []
+    for key, depth in depths:
+        if key not in poses:
+            continue
+        R, t = poses[key]
+        v, u = np.nonzero((depth > 0) & (depth < max_depth))
+        z = depth[v, u]
+        X = np.stack([(u - cx) / fx * z, (v - cy) / fy * z, z], -1)
+        pts.append((X - t) @ R)           # R^T (X - t)
+    pts = np.concatenate(pts).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    return pts[rng.choice(len(pts), n, replace=False)]

@@ -2,8 +2,9 @@
 
 A copy of the parts of plvs_tpu/io/synthetic.py the port's tests and chip
 smoke use: the corner-blob and structured-panel textures, the default
-sweep trajectory, the textured-wall renderer, and the four-wall room with
-its orbit trajectory (the loop-closure scene). The renderers' ray tables
+sweep trajectory, the textured-wall renderer and its two views through a
+calibrated stereo rig, and the four-wall room with its orbit trajectory
+(the loop-closure scene). The renderers' ray tables
 come from the port's own ``cameras.unproject`` on the CPU.
 """
 
@@ -225,6 +226,15 @@ class SyntheticRoom:
             gray, depth = self.render(R, t)
             yield i / fps, gray, depth, R, t
 
+    def wall_normals(self, pts: np.ndarray) -> np.ndarray:
+        """Inward unit normal [N, 3] of the wall (x or z = +-half) nearest
+        each room-frame point [N, 3]."""
+        on_x = np.abs(pts[:, 0]) > np.abs(pts[:, 2])
+        n = np.zeros_like(pts, dtype=np.float32)
+        n[on_x, 0] = -np.sign(pts[on_x, 0])
+        n[~on_x, 2] = -np.sign(pts[~on_x, 2])
+        return n
+
 
 class SyntheticRGBD:
     """Renders frames of a textured wall at world z = wall_z (camera x
@@ -270,6 +280,49 @@ class SyntheticRGBD:
         for i, (R, t) in enumerate(poses):
             gray, depth = self.render(R, t)
             yield i / fps, gray, depth, R, t
+
+
+# tests/test_stereo_rig.py's KB8 fisheye pair scaled to 640x480: (fx, fy,
+# cx, cy, k1, k2, k3, k4) of the left and the right camera
+RIG_KB8_LEFT = (310.0, 310.0, 320.0, 240.0, 0.02, -0.008, 0.002, -0.0005)
+RIG_KB8_RIGHT = (306.0, 306.0, 322.0, 238.0, 0.019, -0.0075, 0.0021, -0.0004)
+
+
+def rig_extrinsic(yaw: float = 0.017, baseline: float = 0.11) -> np.ndarray:
+    """4x4 right-to-left transform of that pair: the right camera
+    ``baseline`` m to the right, yawed by ``yaw`` rad."""
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = _so3_exp_np(np.array([0.0, yaw, 0.0]))
+    T[:3, 3] = [baseline, 0.0, 0.0]
+    return T
+
+
+class SyntheticRig:
+    """Both views of a textured wall through a calibrated stereo rig (any
+    camera models): ``T_c1_c2`` maps right-camera points into the left
+    camera, X_c1 = R X_c2 + t, and both cameras see one texture. The left
+    camera follows the given poses."""
+
+    def __init__(self, cam_l: cam_mod.Camera, cam_r: cam_mod.Camera,
+                 T_c1_c2: np.ndarray, **wall_kw):
+        self.left = SyntheticRGBD(cam_l, **wall_kw)
+        self.right = SyntheticRGBD(cam_r, **{**wall_kw,
+                                             "texture": self.left.tex})
+        T = np.asarray(T_c1_c2, np.float32)
+        self.R12, self.t12 = T[:3, :3], T[:3, 3]
+
+    def render(self, R: np.ndarray, t: np.ndarray):
+        """(left gray, right gray, left depth) at left pose (R, t)."""
+        gray_l, depth_l = self.left.render(R, t)
+        gray_r, _ = self.right.render(self.R12.T @ R,
+                                      self.R12.T @ (t - self.t12))
+        return gray_l, gray_r, depth_l
+
+    def sequence(self, poses, fps: float = 30.0):
+        """(ts, left, right, R, t) per pose."""
+        for i, (R, t) in enumerate(poses):
+            gray_l, gray_r, _ = self.render(R, t)
+            yield i / fps, gray_l, gray_r, R, t
 
 
 # -- connected-component grids (kernel K2's test inputs) ---------------------

@@ -1,11 +1,11 @@
 """Per-frame construction: feature extraction + depth association.
 
-Counterpart of the RGB-D and rectified-stereo parts of
-plvs_tpu/slam/frame.py (``Frame``, ``FrameLines``, ``build_frame_rgbd``,
-``build_frame_lines``, ``build_frame_stereo``, ``build_frame_lines_stereo``,
-``project_points``); the non-rectified rig (``build_frame_stereo_rig``) and
-the monocular frame wait for ROADMAP.md queue 1 items 6 and 7. Stereo
-images are float32 as given (not quantized), as in JAX. The depth image of
+Counterpart of the RGB-D and stereo parts of plvs_tpu/slam/frame.py
+(``Frame``, ``FrameLines``, ``build_frame_rgbd``, ``build_frame_lines``,
+``build_frame_stereo``, ``build_frame_stereo_rig``,
+``build_frame_lines_stereo``, ``project_points``); the monocular frame
+waits for ROADMAP.md queue 1 item 7. Stereo images are float32 as given
+(not quantized), as in JAX. The depth image of
 an RGB-D frame may arrive decimated (the quantized
 upload of ``System.track_rgbd`` keeps it at 1/dec resolution); consumers
 nearest-sample it by scaling the gather indices, as the JAX package does.
@@ -161,6 +161,133 @@ def build_frame_stereo(gray_l: torch.Tensor, gray_r: torch.Tensor,
     uR_out = torch.where(ok, uR, torch.full_like(uR, -1.0))
     uvr = torch.cat([kp_l.xy, uR_out[:, None]], -1)
     xyz = cam_mod.backproject(cam, kp_l.xy, d)
+    return Frame(kp_l, uvr, d, orb.inv_scale_sigma2(kp_l.octave, scale), xyz)
+
+
+def _midpoint(dl, dm, t_lr):
+    """Two-ray midpoint triangulation in the left frame (left centre 0,
+    right centre ``t_lr``; unit rays ``dl`` and ``dm``): (X, depth along
+    the left ray, depth along the right ray)."""
+    d11 = (dl * dl).sum(-1)
+    d12 = (dl * dm).sum(-1)
+    d22 = (dm * dm).sum(-1)
+    b1 = dl @ t_lr
+    b2 = dm @ t_lr
+    det = d11 * d22 - d12 * d12
+    det = torch.where(det.abs() < 1e-9, torch.full_like(det, 1e-9), det)
+    a = (b1 * d22 - b2 * d12) / det
+    b = (b1 * d12 - b2 * d11) / det
+    X = 0.5 * (a[:, None] * dl + (t_lr + b[:, None] * dm))
+    return X, a, b
+
+
+def _bilinear(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of ``img`` at uv [..., 2], clamped to
+    [0, size - 1.001]."""
+    h, w = img.shape
+    u = torch.clamp(uv[..., 0], 0.0, w - 1.001)
+    v = torch.clamp(uv[..., 1], 0.0, h - 1.001)
+    u0 = torch.floor(u).to(torch.int64)
+    v0 = torch.floor(v).to(torch.int64)
+    fu, fv = u - u0, v - v0
+    return ((img[v0, u0] * (1 - fu) + img[v0, u0 + 1] * fu) * (1 - fv)
+            + (img[v0 + 1, u0] * (1 - fu) + img[v0 + 1, u0 + 1] * fu) * fv)
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.norm(x, dim=-1, keepdim=True)
+
+
+def build_frame_stereo_rig(gray_l: torch.Tensor, gray_r: torch.Tensor,
+                           cam_l: cam_mod.Camera, cam_r: cam_mod.Camera,
+                           R_lr: torch.Tensor, t_lr: torch.Tensor,
+                           num_features: int = 1024, n_levels: int = 8,
+                           scale: float = 1.2, epipolar_tol: float = 0.008,
+                           reproj_tol: float = 2.0) -> Frame:
+    """Non-rectified stereo rig (e.g. a KB8 fisheye pair) -> Frame.
+    (R_lr, t_lr) maps right-camera points into the left camera:
+    X_l = R_lr X_r + t_lr.
+
+    Both images run the same ORB extraction; right candidates of a left
+    keypoint lie on its epipolar plane (|sin| of the angle between the left
+    bearing and the plane of the baseline and the right bearing at most
+    ``epipolar_tol``) within one octave, matched through the Hamming matrix
+    (kernel K1) with a strict gate and a ratio test. Matches are
+    triangulated by the two-ray midpoint, kept if in front of both cameras
+    and reprojecting within ``reproj_tol`` px (per octave) in both, refined
+    by a SAD parabola over 17 steps of [-2, 2] px along the right image's
+    epipolar tangent (9x9 bilinear patches) and triangulated again. Depths
+    land in ``depth`` / ``xyz_cam``; uR stays -1, so pose residuals are
+    monocular on the left camera."""
+    kp_l = orb.extract(gray_l, num_features, n_levels, scale)
+    kp_r = orb.extract(gray_r, num_features, n_levels, scale)
+    f32 = torch.float32
+    dev = gray_l.device
+
+    dl = _unit(cam_mod.unproject(cam_l, kp_l.xy))
+    dr = _unit(cam_mod.unproject(cam_r, kp_r.xy))
+    dr_l = dr @ R_lr.T                       # right rays in the left frame
+    # epipolar-plane gate: the left bearing must lie on the plane spanned
+    # by the baseline and the right bearing
+    n_plane = torch.linalg.cross(t_lr.expand_as(dr_l), dr_l, dim=-1)
+    n_plane = n_plane / torch.clamp(
+        torch.linalg.norm(n_plane, dim=-1, keepdim=True), min=1e-9)
+    epi = (dl @ n_plane.T).abs()             # [N_l, N_r] |sin(angle)|
+    oct_ok = (kp_l.octave[:, None] - kp_r.octave[None, :]).abs() <= 1
+    cand = ((epi <= epipolar_tol) & oct_ok
+            & kp_l.mask[:, None] & kp_r.mask[None, :])
+    dist = matching.hamming(kp_l.desc, kp_r.desc)
+    best, second, idx = matching._masked_best2(dist, cand)
+    ok = (best <= matching.TH_LOW) & (best.to(f32) <= 0.8 * second.to(f32))
+
+    dm = dr_l[idx]
+    X, a, b = _midpoint(dl, dm, t_lr)
+    # cheirality + reprojection in both cameras
+    uv_l = cam_mod.project(cam_l, X)
+    uv_r = cam_mod.project(cam_r, (X - t_lr) @ R_lr)
+    err_l = torch.linalg.norm(uv_l - kp_l.xy, dim=-1)
+    err_r = torch.linalg.norm(uv_r - kp_r.xy[idx], dim=-1)
+    tol = reproj_tol * torch.pow(scale, kp_l.octave.to(f32))
+    ok = (ok & (a > 0.05) & (b > 0.05) & (X[:, 2] > 0.05)
+          & (err_l < tol) & (err_r < tol))
+
+    # subpixel refinement along the right image's epipolar tangent
+    uv_r2 = cam_mod.project(cam_r, ((1.05 * a)[:, None] * dl - t_lr) @ R_lr)
+    tang = uv_r2 - uv_r
+    tang = tang / torch.clamp(torch.linalg.norm(tang, dim=-1, keepdim=True),
+                              min=1e-6)
+    W = 4  # 9x9 SAD window
+    oy, ox = torch.meshgrid(torch.arange(-W, W + 1, device=dev),
+                            torch.arange(-W, W + 1, device=dev),
+                            indexing="ij")
+    win = torch.stack([ox, oy], -1).reshape(-1, 2).to(f32)
+    patch_l = _bilinear(gray_l, kp_l.xy[:, None, :] + win[None])  # [N, 81]
+    deltas = torch.linspace(-2.0, 2.0, 17, device=dev)
+    sads = torch.stack([
+        (patch_l - _bilinear(gray_r, (uv_r + s * tang)[:, None, :]
+                             + win[None])).abs().sum(-1)
+        for s in deltas])                                        # [17, N]
+    bidx = torch.clamp(torch.argmin(sads, dim=0), 1, len(deltas) - 2)
+    c0 = sads.gather(0, (bidx - 1)[None])[0]
+    c1 = sads.gather(0, bidx[None])[0]
+    c2 = sads.gather(0, (bidx + 1)[None])[0]
+    denom = c0 - 2 * c1 + c2
+    step = deltas[1] - deltas[0]
+    sub = torch.where(denom.abs() > 1e-6, 0.5 * (c0 - c2) / denom,
+                      torch.zeros_like(denom))
+    shift = deltas[bidx] + torch.clamp(sub, -1.0, 1.0) * step
+    uv_r_ref = uv_r + shift[:, None] * tang
+
+    # re-triangulate with the refined right bearing
+    dm2 = _unit(cam_mod.unproject(cam_r, uv_r_ref)) @ R_lr.T
+    X2, a2, bb2 = _midpoint(dl, dm2, t_lr)
+    refine_ok = ((a2 > 0.05) & (bb2 > 0.05) & (X2[:, 2] > 0.05)
+                 & ((a2 - a).abs() < 0.3 * torch.clamp(a, min=1e-3)))
+    X = torch.where(refine_ok[:, None], X2, X)
+
+    d = torch.where(ok, X[:, 2], torch.zeros_like(a))
+    xyz = torch.where(ok[:, None], X, torch.zeros_like(X))
+    uvr = torch.cat([kp_l.xy, torch.full_like(kp_l.xy[:, :1], -1.0)], -1)
     return Frame(kp_l, uvr, d, orb.inv_scale_sigma2(kp_l.octave, scale), xyz)
 
 

@@ -1,6 +1,10 @@
-"""System facade for RGB-D and rectified-stereo SLAM with points and
-lines, loop closing, relocalization, dense TSDF mapping and, with
-``use_imu``, the inertial path.
+"""System facade for RGB-D and stereo SLAM with points and lines, loop
+closing, relocalization, dense TSDF mapping (with ``dense_segmentation``
+the incremental 3D segmentation) and, with ``use_imu``, the inertial path.
+A stereo pair is rectified (row-aligned), or a calibrated non-rectified
+rig (``cam2`` / ``T_c1_c2``, e.g. a KB8 fisheye pair) matched across its
+epipolar geometry, or — with ``rectify`` — warped to a common rectified
+pinhole pair first.
 
 Counterpart of plvs_tpu/slam/system.py for the ported slices:
 ``SystemConfig`` keeps every field and default of the JAX package, and the
@@ -66,6 +70,7 @@ import torch
 from ..dense.mapping import DenseMapper
 from ..geometry import cameras as cam_mod
 from ..geometry import lie
+from ..geometry.rectify import StereoRectifier
 from ..ops import resolve_device
 from ..utils.fetch import HelperFetch, SyncFetch, to_host
 from ..utils.profiling import Stopwatch
@@ -141,17 +146,15 @@ class SystemConfig:
 
 # settings outside this slice -> (value that is in the slice, ROADMAP item)
 _NOT_IN_SLICE = {
-    "dense_segmentation": (False, "queue 1 item 7, segmentation"),
-    "rectify": (False, "queue 1 item 6, stereo rectification"),
     "sharded_backend": (False, "queue 1 item 8, multi-device"),
     "image_scale": (1.0, "queue 1 item 7, mono and the rest"),
 }
 
 
 class System:
-    """RGB-D / rectified-stereo SLAM on one device (optional keyframe
-    backend, loop closing, dense mapping, deferred resolution and the
-    interleaved or threaded backend)."""
+    """RGB-D / stereo SLAM on one device (optional keyframe backend, loop
+    closing, dense mapping, deferred resolution and the interleaved or
+    threaded backend)."""
 
     # interleaved backend: queued keyframe generators beyond this force
     # catch-up steps (see _enqueue_backend)
@@ -164,7 +167,12 @@ class System:
     def __init__(self, cam: cam_mod.Camera, config: SystemConfig | None = None,
                  device: str | torch.device = "cuda", cam2=None, T_c1_c2=None,
                  imu_calib=None, imu_T_b_c=None):
-        """``imu_calib`` (``imu.preintegration.ImuCalib`` noise densities)
+        """``cam2`` / ``T_c1_c2`` declare a non-rectified stereo rig:
+        T_c1_c2 is the 4x4 right-to-left transform X_c1 = T X_c2. With
+        ``config.rectify`` the pair is warped to a common rectified pinhole
+        instead (``self.cam`` becomes it).
+
+        ``imu_calib`` (``imu.preintegration.ImuCalib`` noise densities)
         and ``imu_T_b_c`` (4x4 camera-in-body extrinsic, X_b = T X_c)
         configure the inertial runtime when ``config.use_imu`` is set."""
         self.config = c = config or SystemConfig()
@@ -175,14 +183,25 @@ class System:
                     f"ported slice; ROADMAP.md {item} ports it")
         if c.sensor not in ("rgbd", "stereo"):
             raise NotImplementedError(
-                f"SystemConfig.sensor={c.sensor!r}: RGB-D and rectified "
-                "stereo are ported; mono is ROADMAP.md queue 1 item 7")
-        if cam2 is not None or T_c1_c2 is not None:
-            raise NotImplementedError(
-                "cam2 / T_c1_c2: the non-rectified stereo rig is ROADMAP.md "
-                "queue 1 item 6 (stereo rig)")
+                f"SystemConfig.sensor={c.sensor!r}: RGB-D and stereo are "
+                "ported; mono is ROADMAP.md queue 1 item 7")
         self.device = resolve_device(device)
+        self.rectifier = None
+        if c.rectify and cam2 is not None and T_c1_c2 is not None:
+            self.rectifier = StereoRectifier(
+                cam, cam2, np.asarray(T_c1_c2, np.float32),
+                device=self.device)
+            cam = self.rectifier.cam       # common row-aligned pinhole
+            cam2 = T_c1_c2 = None          # downstream sees rectified stereo
         self.cam = cam
+        self.cam2 = cam2
+        self.R_lr = self.t_lr = None
+        if T_c1_c2 is not None:
+            T = np.asarray(T_c1_c2, np.float32)
+            self.R_lr = T[:3, :3].copy()
+            self.t_lr = T[:3, 3].copy()
+            self._rig_d = (torch.from_numpy(self.R_lr).to(self.device),
+                           torch.from_numpy(self.t_lr).to(self.device))
         self.store = MapStore(max_kf=c.max_kf, max_pts=c.max_pts,
                               n_kp=c.num_features)
         self.kfdb = KeyFrameDatabase(self.store, device=self.device)
@@ -195,7 +214,10 @@ class System:
             max_kf_interval=c.max_kf_interval, use_lines=c.use_lines,
             sensor=c.sensor, fov_centers_kf=c.fov_centers_kf,
             max_fov_centers_distance=c.max_fov_centers_distance,
-            min_init_pts=max(100, int(round(300 * c.image_scale ** 2))),
+            # a non-rectified rig triangulates fewer (verified) matches
+            min_init_pts=(max(80, int(round(120 * c.image_scale ** 2)))
+                          if cam2 is not None
+                          else max(100, int(round(300 * c.image_scale ** 2)))),
             kfdb=self.kfdb, new_map_after_lost=c.new_map_after_lost,
             device=self.device)
         tr = self.tracker
@@ -214,6 +236,10 @@ class System:
         tr.on_resolved = self._on_resolved
         # dense payloads of queued frames, by the tracker's frame counter
         self._pending_payloads = {}
+        if self.cam2 is not None and self.t_lr is not None:
+            # a rig camera has no rectified bf: the close/far depth gate is
+            # 40 baselines
+            tr.max_depth = 40.0 * float(np.linalg.norm(self.t_lr))
         self.local_mapper = LocalMapper(
             cam, self.store, scale=c.scale, n_levels=c.n_levels,
             use_lines=c.use_lines, kfdb=self.kfdb,
@@ -226,7 +252,9 @@ class System:
         if c.dense_mapping:
             self.dense_mapper = DenseMapper(
                 cam, voxel_size=c.dense_voxel_size,
-                mesh_every=c.dense_mesh_every, device=self.device)
+                use_segmentation=c.dense_segmentation,
+                mesh_every=c.dense_mesh_every,
+                fixed_shapes=c.backend_fixed_shapes, device=self.device)
         # interleaved backend: the FIFO of staged keyframe generators, why
         # each stage advanced (fetch done / deadline / forced catch-up), and
         # the helper threads that wait on the stages' fetches
@@ -318,21 +346,35 @@ class System:
 
     def track_stereo(self, gray_l: np.ndarray, gray_r: np.ndarray,
                      timestamp: float, imu_samples=None):
-        """Track one rectified stereo pair (gray [H, W] each, float32 as
-        given — stereo images are not quantized; ``imu_samples`` as for
-        ``track_rgbd``: stereo-inertial); returns (state, Rcw, tcw)."""
+        """Track one stereo pair (gray [H, W] each, float32 as given —
+        stereo images are not quantized; ``imu_samples`` as for
+        ``track_rgbd``: stereo-inertial): rectified, or warped first
+        (``rectify``), or matched across the rig's epipolar geometry;
+        returns (state, Rcw, tcw)."""
+        if self.rectifier is not None:
+            gl, gr = self.rectifier(gray_l, gray_r)
+        else:
+            gl = torch.from_numpy(np.asarray(gray_l, np.float32)).to(
+                self.device)
+            gr = torch.from_numpy(np.asarray(gray_r, np.float32)).to(
+                self.device)
         self._imu_pre_frame(timestamp, imu_samples)
         if self.actor is not None:
             self.actor.apply_pending_correction()
         self._resolve_pipeline()
         c = self.config
-        gl = torch.from_numpy(np.asarray(gray_l, np.float32)).to(self.device)
-        gr = torch.from_numpy(np.asarray(gray_r, np.float32)).to(self.device)
-        fr = frame_mod.build_frame_stereo(gl, gr, self.cam, c.num_features,
-                                          c.n_levels, c.scale)
-        fl = (frame_mod.build_frame_lines_stereo(gl, gr, self.cam,
-                                                 c.max_lines)
-              if c.use_lines else None)
+        with self.stopwatch.scope("frame_build"):
+            if self.cam2 is not None and self.R_lr is not None:
+                fr = frame_mod.build_frame_stereo_rig(
+                    gl, gr, self.cam, self.cam2, *self._rig_d,
+                    c.num_features, c.n_levels, c.scale)
+            else:
+                fr = frame_mod.build_frame_stereo(gl, gr, self.cam,
+                                                  c.num_features, c.n_levels,
+                                                  c.scale)
+            fl = (frame_mod.build_frame_lines_stereo(gl, gr, self.cam,
+                                                     c.max_lines)
+                  if c.use_lines else None)
         with self.stopwatch.scope("track"):
             res = self.tracker.process_frame(fr, timestamp, fl)
         payload = ("stereo", gl, gr) if self.dense_mapper else None

@@ -18,7 +18,9 @@ helper-thread fetch is held to a synchronous copy, and a pipelined run with
 its threads and a run with the mapper actor go through the card. The
 inertial path: preintegration, the inertial-only initialization and the VI
 BA against the CPU (the two solves under sync-debug mode), and an RGB-D +
-IMU System through the pipelined runtime.
+IMU System through the pipelined runtime. Slice 9: the KB8 rig's frame,
+SGM disparity, the segmentation's edge stage and capped fill, and the
+ESDF's jump flooding, each on the card against the CPU.
 """
 
 import math
@@ -839,3 +841,105 @@ def test_inertial_system_on_cuda(dev):
     ate = evaluation.ate_rmse(system.trajectory_tum()[:, 1:4], gt,
                               align=True)
     assert ate < 0.05, ate
+
+
+# ---------------------------------------------------------------------------
+# stereo rigs and the rest of the dense stage
+# ---------------------------------------------------------------------------
+
+def test_rig_frame_on_cuda_matches_cpu(dev):
+    """The KB8 rig's frame at 640x480 (chip smoke phase 10's pair and first
+    frame) on the card against the same code on the CPU: the same
+    keypoints and triangulated matches on >= 97% (float32 steps on the
+    card in another order can move a borderline keypoint), depths with a
+    median within 5e-4 relative and all
+    within 2e-2 (the SAD parabola amplifies float32 reduction-order
+    differences, as in tests/test_torch_stereo_rig.py; measured on the
+    card: median 1.1e-4)."""
+    from plvs_tpu_torch.slam import frame as frame_mod
+
+    size = dict(width=640, height=480)
+    cl = cameras.kannala_brandt8(*synthetic.RIG_KB8_LEFT, **size)
+    cr = cameras.kannala_brandt8(*synthetic.RIG_KB8_RIGHT, **size)
+    T = synthetic.rig_extrinsic()
+    rig = synthetic.SyntheticRig(cl, cr, T, wall_z=3.0,
+                                 texture=synthetic.make_structured_texture(
+                                     2048, rng=np.random.default_rng(7)),
+                                 tex_scale=420.0)
+    gl, gr, _ = rig.render(*synthetic.default_trajectory(120)[0])
+    out = {}
+    for d in ("cpu", dev):
+        out[str(d)] = frame_mod.build_frame_stereo_rig(
+            torch.from_numpy(gl).to(d), torch.from_numpy(gr).to(d), cl, cr,
+            torch.from_numpy(T[:3, :3].copy()).to(d),
+            torch.from_numpy(T[:3, 3].copy()).to(d), 1024, 8, 1.2)
+    a, b = out["cpu"], out[str(dev)]
+    same = ((a.kp.xy == b.kp.xy.cpu()).all(-1)
+            & (a.kp.mask == b.kp.mask.cpu())).numpy()
+    assert same.mean() >= 0.97
+    da, db = a.depth.numpy(), b.depth.cpu().numpy()
+    assert ((da > 0) == (db > 0))[same].mean() >= 0.97
+    both = same & (da > 0) & (db > 0)
+    assert both.sum() > 100
+    rel = np.abs(db[both] - da[both]) / da[both]
+    assert np.median(rel) < 5e-4 and rel.max() < 2e-2
+
+
+def test_sgm_on_cuda_matches_cpu(dev):
+    """SGM disparity at 480x640, D = 64, on the card against the CPU: the
+    same valid pixels on >= 99.5% and the same disparities within 1e-4 px
+    (elementwise float32 steps in one order; only the parabola divides)."""
+    from plvs_tpu_torch.dense import stereo_depth as sd
+
+    rng = np.random.default_rng(0)
+    base = rng.uniform(0, 255, (480, 640 + 80)).astype(np.float32)
+    left, right = base[:, 40:680], base[:, 49:689]
+    before = stereo.launches
+    out = [sd.disparity(torch.from_numpy(left).to(d),
+                        torch.from_numpy(right).to(d), max_disp=64,
+                        method="sgm").cpu().numpy() for d in ("cpu", dev)]
+    assert stereo.launches == before       # SGM never reaches K3
+    a, b = out
+    assert ((a > 0) == (b > 0)).mean() >= 0.995
+    both = (a > 0) & (b > 0)
+    assert both.mean() > 0.8
+    np.testing.assert_allclose(b[both], a[both], atol=1e-4, rtol=0)
+    assert np.median(np.abs(b[both] - 9.0)) < 0.1
+
+
+def test_segment_depth_on_cuda_matches_cpu(dev):
+    """segment_depth of a 640x480 room depth with two boxes and dropouts on
+    the card against the CPU: links on >= 99.9% of the edges, and the
+    labels fed the CPU's links equal (integer fill and area threshold)."""
+    from plvs_tpu_torch.dense import processing as proc
+
+    cam = cameras.pinhole(520.9, 521.0, 325.1, 249.7, width=640, height=480,
+                          bf=40.0)
+    room = synthetic.SyntheticRoom(cam, half=3.0, tex_size=2048, seed=3)
+    R, t = synthetic.orbit_loop_trajectory(60, radius=0.6, laps=0.5)[20]
+    _, depth = room.render(R, t)
+    rng = np.random.default_rng(0)
+    depth[100:220, 150:330] = 1.5
+    depth[rng.random(depth.shape) < 0.02] = 0.0
+    c_cpu, _, v = proc.segment_connectivity(cam, torch.from_numpy(depth))
+    c_gpu, _, _ = proc.segment_connectivity(
+        cam, torch.from_numpy(depth).to(dev))
+    assert (c_gpu.cpu() == c_cpu).float().mean() >= 0.999
+    lab_cpu = proc.label_components(c_cpu, v)
+    lab_gpu = proc.label_components(c_cpu.to(dev), v.to(dev))
+    assert torch.equal(lab_gpu.cpu(), lab_cpu)
+    assert len(torch.unique(lab_cpu)) > 2
+
+
+def test_esdf_on_cuda_matches_cpu(dev):
+    """Jump flooding on a random 64x48x40 occupancy on the card against
+    the CPU: the same distances."""
+    from plvs_tpu_torch.dense import esdf
+
+    rng = np.random.default_rng(1)
+    occ = np.zeros((64, 48, 40), bool)
+    pts = rng.integers(0, occ.shape, (50, 3))
+    occ[pts[:, 0], pts[:, 1], pts[:, 2]] = True
+    a = esdf.esdf_jfa(torch.from_numpy(occ), 0.02)
+    b = esdf.esdf_jfa(torch.from_numpy(occ).to(dev), 0.02).cpu()
+    torch.testing.assert_close(b, a, rtol=2.5e-7, atol=0)

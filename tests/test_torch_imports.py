@@ -52,6 +52,9 @@ def test_the_walk_covers_the_port():
                 "solvers/vi_ba.py", "slam/inertial.py"):
         assert f"plvs_tpu_torch/{mod}" in names, mod
     assert "scripts/count_imu_ops.py" in names
+    for mod in ("geometry/rectify.py", "dense/esdf.py", "dense/labels.py",
+                "utils/depth_model.py"):
+        assert f"plvs_tpu_torch/{mod}" in names, mod
     assert len(names) > 30
     for src in ("import jax.numpy as jnp", "from plvs_tpu.ops import stereo",
                 "import importlib\nimportlib.import_module('jax')",

@@ -154,9 +154,10 @@ def test_disparity_matches_jnp_path_away_from_borders(rng):
     assert np.abs(ref[m] - out[m]).max() < 0.1
     assert np.abs(out[m] - true_d).max() < 0.6
     assert ((ref > 0) != (out > 0))[6:-6, D + 6:-6].mean() < 0.02
-    with pytest.raises(NotImplementedError):
+    # an unknown method raises; "sgm" is ported (tests/test_torch_dense.py)
+    with pytest.raises(ValueError):
         tsd.disparity(torch.from_numpy(left), torch.from_numpy(right),
-                      max_disp=D, method="sgm")
+                      max_disp=D, method="census")
 
 
 def test_disparity_to_depth_exact(rng):

@@ -124,14 +124,27 @@ def test_rgbd_dense_map_agrees(runs):
 
 
 def test_unsupported_settings_raise():
+    """Only the monocular sensor, the sharded backend and the image scale
+    still raise; rectification, the non-rectified rig and the dense
+    segmentation construct (tests/test_torch_stereo_rig.py and
+    tests/test_torch_segmentation.py hold them to JAX)."""
     cam = tcam.pinhole(*CAM_ARGS, **CAM_KW)
-    for kw in (dict(rectify=True), dict(dense_segmentation=True),
-               dict(use_imu=True, sensor="mono"), dict(sensor="mono")):
+    for kw in (dict(use_imu=True, sensor="mono"), dict(sensor="mono"),
+               dict(sharded_backend=True), dict(image_scale=0.5)):
         with pytest.raises(NotImplementedError):
             TSystem(cam, TConfig(**{**FLAGS, **kw}), device="cpu")
-    with pytest.raises(NotImplementedError):   # the non-rectified rig
-        TSystem(cam, TConfig(**{**FLAGS, "sensor": "stereo"}), device="cpu",
-                cam2=cam, T_c1_c2=np.eye(4, dtype=np.float32))
+    rig = np.eye(4, dtype=np.float32)
+    rig[0, 3] = 0.1
+    s = TSystem(cam, TConfig(**{**FLAGS, "sensor": "stereo"}), device="cpu",
+                cam2=cam, T_c1_c2=rig)
+    assert s.cam2 is cam and s.rectifier is None
+    s = TSystem(cam, TConfig(**{**FLAGS, "sensor": "stereo",
+                                "rectify": True}), device="cpu",
+                cam2=cam, T_c1_c2=rig)
+    assert s.cam2 is None and s.cam.bf == pytest.approx(0.1 * 300.0)
+    s = TSystem(cam, TConfig(**{**FLAGS, "dense_segmentation": True}),
+                device="cpu")
+    assert s.dense_mapper.use_segmentation
 
 
 def test_cuda_requested_without_cuda_raises():
