@@ -20,7 +20,8 @@ kernel runs exactly one device kernel; and measures the device memory one
 K3 call adds. Phase 2 drives slice 1's path —
 ``System.track_rgbd``, synchronous RGB-D tracking with points and lines at
 640x480, 1024 ORB features, 8 levels, 160 keylines, keyframe backend off —
-over bench.py's structured-wall scene, with every launch counter set to 0
+over bench.py's structured-wall scene (its sweep in N_FRAMES = 40 frames;
+phases 3-4 and 6-7 run the same 40), with every launch counter set to 0
 just before and read just after, checks that every frame is tracked and
 the trajectory's ATE is within the bound below, and prints K1's launches
 by shape and their device time beside its bound. A phase's K1 device
@@ -52,8 +53,9 @@ about JAX's keyframe with a falling pose-graph cost, the global BA finite
 and non-increasing, the ATE, the live map, and the dense map after the
 rebuild; it prints the loop stages' ms (synchronised scopes) per keyframe
 and per closure. Phase 6 drives the relocalization path — phase 2's scene
-and flags with a blackout of blank frames — and holds the state sequence
-(RECENTLY_LOST, then OK) to JAX's and the final camera centre to ground
+and flags with a blackout of blank frames, the RECENTLY_LOST grace
+granted from 3 keyframes — and holds the state sequence (RECENTLY_LOST,
+then OK) to JAX's and the final camera centre to ground
 truth. Phase 7 drives slice 7's path — ``System.track_rgbd`` in bench.py's
 configuration (lines, local BA, loop closing, dense mapping, fixed BA
 shapes, pipelined at depth 4 with the overlap thread and the interleaved
@@ -62,18 +64,17 @@ package's run of it: every frame resolved and OK, every queue empty, the
 ATE, the live map and the dense map, and K2 launched once per line frame
 built; it prints what ``track_rgbd`` costs the tracking thread (p50, p90),
 the resolves, the backend's ``_stage_stats`` and largest backlog. Phase 8
-is the same with the mapper actor (``async_mapping``, points only) over
-phase 5's room orbit, whose outcome the actor's timing makes bimodal in both
-packages; it is held to what the JAX runs share (the ATE bound, no more
-frames lost than the worst run and the last 10 tracked, the map's density
-per live keyframe), with the actor error-free and joined by
-``shutdown()``; it prints keyframe and other frames' p50 and p90 and the
+is the same with the mapper actor (``async_mapping``, bench.py's
+PLVS_BENCH_ASYNC=1 path) over the same 40 frames, held to the median of
+five JAX runs (every frame OK, the ATE bound, the live and dense maps),
+with the actor error-free and joined by ``shutdown()``; it prints keyframe
+and other frames' p50 and p90 and the
 frames during which a loop closed. Phase 9 drives slice 8's inertial path
 in bench.py's RGB-D-inertial scenario (``_vi_throughput_scenario``:
 640x480, 1024 features, 8 levels, no lines, local BA, ``use_imu``,
 pipelined at depth 2 with the overlap thread, fixed BA shapes, a keyframe
-at least every 4 frames) over the 90 frames of its timed pass with a
-300 Hz IMU, then ``flush()``, and holds it to the JAX package's run: every
+at least every 4 frames) over the first 66 frames of its timed pass with
+a 300 Hz IMU, then ``flush()``, and holds it to the JAX package's run: every
 frame resolved and OK, the IMU initialized at JAX's keyframe +-2, the
 gravity's cosine to the truth over 0.98, the gyro bias within 5e-3 of the
 truth, the ATE bound, the live keyframes and points within +-25%, and one
@@ -82,13 +83,13 @@ p50 and p90 beside bench.py's vi_fps measure, the frame-gap
 preintegration's ms and dispatched operations, and the VI BA's ms with its
 LM and CG iterations. Phase 10 drives slice 9's rig path —
 ``System.track_stereo`` with ``cam2`` / ``T_c1_c2``: tests/test_stereo_rig.py's
-KB8 fisheye pair scaled to 640x480 over 90 frames of phase 2's wall and
-poses, local BA with fixed BA shapes, no lines — and holds it to the JAX
-package's run (``scripts/reference_rig.py``): every frame OK, the ATE, the
+KB8 fisheye pair scaled to 640x480 over the first 45 of 120 poses of
+phase 2's sweep, local BA with fixed BA shapes, no lines — and holds it to
+the JAX package's run (``scripts/reference_rig.py``): every frame OK, the ATE, the
 live keyframes and points, the first frame's triangulated depths against
 the rendered depth (the JAX test's gates), and K1 at 1024x1024 every
 frame, exact on the first frame's descriptors. Phase 11 runs the same rig
-with ``rectify=True`` and 2 cm dense mapping over 60 frames (every frame
+with ``rectify=True`` and 2 cm dense mapping over 40 frames (every frame
 OK, the ATE, K3 once per keyframe, the dense map) and then
 ``disparity(method="sgm")`` on the first rectified pair (its valid share
 and median depth error against JAX's, its ms and dispatched operations,
@@ -100,9 +101,28 @@ then the dense library on the stored keyframes at their final poses
 (``DenseMapper(multi_res=True, carve_every=3, fixed_shapes=True)`` through
 ``insert_keyframe_rgbd``): the fine and coarse occupied voxels, triangles
 and carved voxels against JAX's, the ESDF at 1000 wall points and the mesh
-normals against the room's walls. After each of phases 2-12, K1 is held
-exact against its plain version at every shape that phase launched and no
-earlier phase had checked.
+normals against the room's walls. Phase 13 drives slice 10's monocular
+path — ``System.track_monocular`` at bench width (two-view
+initialization, map growth by ``create_new_points``, local BA, loop
+closing) over tests/test_slam_e2e.py TestMonocular's scene and
+trajectory, frames 28-30 blank — and holds it to the JAX package's run
+(``scripts/reference_mono.py --phase 13``): frame 0 NOT_INITIALIZED, OK
+within two frames of JAX's init frame, lost on the blank frames, OK again
+within three frames of JAX's relocalizing frame after a PnP RANSAC, the
+Sim3-aligned ATE over the OK frames, the live map, and points added by
+``create_new_points``; it prints the init and relocalizing frames' ms and
+``create_new_points``' ms and dispatched operations. Phase 14 drives
+RGB-D at ``image_scale=0.5`` (640x480 in, 320x240 at 1024 features and 8
+levels: ORB's per-level path) with local BA, loop closing and one planar
+map object (``add_map_object``), held to ``reference_mono.py --phase
+14``: every frame OK, the ATE, the map, the object's detections and its
+corners on the wall (tests/test_objects_e2e.py's gates); it prints the
+per-level extraction's ms at 320x240 and for the template. After each of
+phases 2-14, K1 is held exact against its plain version at every shape
+that phase launched and no earlier phase had checked. Each phase prints
+its wall seconds (``phase N: wall``); the run keeps well inside its
+1,200 s limit only because phases 2-4 and 6-11 run fewer frames than
+their scenes allow (the constants below say how many).
 
 It prints one ``{"kernels": [...]}`` line and ends with one
 ``{"ok": true, "device": {...}}`` line. Any failed phase exits non-zero; so
@@ -125,34 +145,35 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # JAX package's ATE-RMSE on this scene and configuration (CPU run of
-# scripts/reference_ate_rgbd_lines.py, 120 frames); the port is held to
-# max(1.5 x it, it + 1 cm)
-REF_ATE_M = 0.0029674518356454585
+# scripts/reference_ate_rgbd_lines.py --frames 40, 217 s: all OK, 4
+# keyframes, 2486 points, 121 lines); the port is held to max(1.5 x it,
+# it + 1 cm)
+REF_ATE_M = 0.002905134946910159
 ATE_BOUND_M = max(1.5 * REF_ATE_M, REF_ATE_M + 0.01)
 
 # JAX package's figures on phase 3's stereo dense-mapping run (CPU run of
-# scripts/reference_ate_stereo_dense.py, 120 frames: all OK, 12 keyframes,
-# 3275 points, 42 lines, 3788 blocks). The port is held to the ATE bound
-# below, the occupied-voxel and mesh-triangle counts within +-25%, and the
+# scripts/reference_ate_stereo_dense.py --frames 40, 220 s: all OK, 5
+# keyframes, 1949 points, 23 lines, 2532 blocks). The port is held to the
+# ATE bound below, the occupied-voxel and mesh-triangle counts within +-25%, and the
 # median |z - 3 m| of the occupied centroids within the JAX value + 2 cm.
 # (The JAX package's CPU path computes disparity with its jnp volume, whose
 # border semantics differ from the TPU kernel's, which K3 follows.)
-REF_STEREO_ATE_M = 0.01587924036181696
+REF_STEREO_ATE_M = 0.017282789188066944
 STEREO_ATE_BOUND_M = max(1.5 * REF_STEREO_ATE_M, REF_STEREO_ATE_M + 0.01)
-REF_OCCUPIED_VOXELS = 207861
+REF_OCCUPIED_VOXELS = 150988
 REF_MEDIAN_ABS_DZ_M = 0.029999971389770508
-REF_MESH_TRIANGLES_FULL = 413390
-REF_MESH_TRIANGLES_INCREMENTAL = 231664
+REF_MESH_TRIANGLES_FULL = 231690
+REF_MESH_TRIANGLES_INCREMENTAL = 70264
 WALL_Z = 3.0
 
 # JAX package's figures on phase 4's run (CPU run of
-# JAX_PLATFORMS=cpu python scripts/reference_ate_rgbd_lines.py --local-ba,
-# 120 frames: all OK, 12 keyframes made, 1 culled, 153 s). The port is held
-# to the ATE bound below and its live keyframes, points and lines within
-# +-25% of these.
-REF_LBA_ATE_M = 0.0038166583429642535
+# JAX_PLATFORMS=cpu python scripts/reference_ate_rgbd_lines.py --local-ba
+# --frames 40, 175 s: all OK, 5 keyframes made, none culled). The port is
+# held to the ATE bound below and its live keyframes, points and lines
+# within +-25% of these.
+REF_LBA_ATE_M = 0.004323713450164359
 LBA_ATE_BOUND_M = max(1.5 * REF_LBA_ATE_M, REF_LBA_ATE_M + 0.01)
-REF_LBA_MAP = {"keyframes": 11, "points": 1612, "lines": 150}
+REF_LBA_MAP = {"keyframes": 5, "points": 1554, "lines": 103}
 
 # JAX package's figures on phase 5's loop-closure run (CPU run of
 # JAX_PLATFORMS=cpu python scripts/reference_loop_room.py, 132 frames, 154
@@ -172,96 +193,91 @@ REF_LOOP_DENSE = {"occupied": 616668, "triangles": 1588332}
 N_LOOP_FRAMES = 132
 
 # JAX package's states on phase 6's relocalization run (CPU run of
-# JAX_PLATFORMS=cpu python scripts/reference_reloc.py --blackout 100 106,
-# 120 frames, 135 s: OK, then RECENTLY_LOST on frames 100-105, OK from
-# frame 106 on; final camera centre 0.0026 m from ground truth). The port
-# is held to the same first lost frame and state within +-1 frame, OK from
-# the same frame on, and a final centre within 0.1 m of ground truth.
-RELOC_BLACKOUT = (100, 106)
-REF_RELOC_FIRST_LOST = 100
+# JAX_PLATFORMS=cpu python scripts/reference_reloc.py --frames 40
+# --blackout 30 33 --recently-lost-keyframes 3, 141 s: OK, then
+# RECENTLY_LOST on frames 30-32, OK from frame 33 on; final camera centre
+# 0.0036 m from ground truth). Both trackers grant the RECENTLY_LOST grace
+# from 3 keyframes (min_kf_recently_lost, 10 by default): the 40-frame map
+# holds 4, and with fewer than the minimum a blackout goes LOST instead.
+# The port is held to the same first lost frame and state within +-1
+# frame, OK from the same frame on, and a final centre within 0.1 m of
+# ground truth.
+RELOC_BLACKOUT = (30, 33)
+RELOC_RECENTLY_LOST_KFS = 3
+REF_RELOC_FIRST_LOST = 30
 REF_RELOC_LOST_STATE = 5       # RECENTLY_LOST
-REF_RELOC_OK_FROM = 106
+REF_RELOC_OK_FROM = 33
 
 # JAX package's figures on bench.py's configuration (bench.py:60-90 with
 # its environment defaults: lines, local BA, loop closing, dense mapping,
 # fixed BA shapes, pipelined at depth 4 with the overlap thread, the
 # interleaved backend) over phase 2's scene, with the two timing decisions
 # taken out (CPU run of JAX_PLATFORMS=cpu python
-# scripts/reference_bench_config.py --inline, 120 frames, 120 s: all OK,
-# no loop, 12 keyframes made, _stage_stats ready 60 /
-# deadline 0 / forced 0, largest backlog 1 — the schedule the port's run
-# on the card takes, where every fetch is done by the next poll; the
-# free-running CPU runs resume a third of the stages on their deadline or
-# by force, and end with 10 keyframes and 1310-1338 points). Phase 7 holds
-# the port to the ATE bound below and its live keyframes, points and
-# lines, occupied voxels and mesh triangles within +-25% of these.
-REF_BENCH_ATE_M = 0.0037565656959197002
+# scripts/reference_bench_config.py --inline --frames 40, 135 s: all OK,
+# no loop, 4 keyframes made, _stage_stats ready 20 / deadline 0 / forced
+# 0, largest backlog 1 — the schedule the port's run on the card takes,
+# where every fetch is done by the next poll; free-running CPU runs resume
+# some stages on their deadline or by force). Phase 7 holds the port to
+# the ATE bound below and its live keyframes, points and lines, occupied
+# voxels and mesh triangles within +-25% of these.
+REF_BENCH_ATE_M = 0.005082445125080849
 BENCH_ATE_BOUND_M = max(1.5 * REF_BENCH_ATE_M, REF_BENCH_ATE_M + 0.01)
-REF_BENCH_MAP = {"keyframes": 11, "points": 1613, "lines": 161}
-REF_BENCH_DENSE = {"occupied": 143555, "triangles": 276168}
+REF_BENCH_MAP = {"keyframes": 4, "points": 1552, "lines": 91}
+REF_BENCH_DENSE = {"occupied": 122097, "triangles": 216268}
 
 # JAX package's figures on phase 8's run: phase 7's configuration with
-# async_mapping=True, points only, over phase 5's room orbit (CPU runs of
-# JAX_PLATFORMS=cpu python scripts/reference_bench_config.py --room
-# --async, 132 frames, CPU runs). The actor's timing decides whether
-# the orbit's far side is lost, in both packages, so the raw map counts
-# are bimodal: of five JAX runs, four lost frames 58-87 and kept 15 live
-# keyframes, one lost none and kept 21 (a sixth crashed inside the
-# reference, its tracker reading the store unlocked while the actor
-# changed it; a --settled run lost frames 33-87 and kept 11). No run
-# closed a loop. Of the port's first five runs on the card, four lost
-# frames 45-87 (16-17 keyframes) and one lost frame 113 alone and closed a
-# loop (27). Phase 8 therefore holds what does not follow the mode: over
-# the six JAX runs that finished (the five and the --settled one), at most
-# as many frames lost as the worst (55, the --settled run), the last 10 frames OK (every run ends tracked) and at
-# least 75% of the fewest live keyframes (11, the same run); against the
-# median of the five free-running runs, the ATE bound below and the map's
-# density — points, occupied voxels and mesh triangles per live keyframe —
-# within +-25%. It prints the raw counts beside them.
-REF_ASYNC_ATE_M = 0.5477670666290201
+# async_mapping=True (bench.py's PLVS_BENCH_ASYNC=1 path) over phase 2's
+# scene in 40 frames (CPU runs of JAX_PLATFORMS=cpu python
+# scripts/reference_bench_config.py --async --frames 40, ~185 s each).
+# With the actor's helper thread a run is one sample, so five were made:
+# all resolved every frame OK and closed no loop, with 4 live keyframes (5
+# in one), 1603-1628 points, 94 lines (106), 123001-128259 occupied voxels
+# and 216112-235104 mesh triangles, ATE 0.00425-0.00518 m; a --settled run
+# gave the same (4, 1627, 93, 122260, 216264). Phase 8 holds the port to
+# every frame resolved OK, the ATE bound below and its live keyframes,
+# points and lines, occupied voxels and mesh triangles within +-25% of
+# the five runs' medians, here.
+REF_ASYNC_ATE_M = 0.004743626946600431
 ASYNC_ATE_BOUND_M = max(1.5 * REF_ASYNC_ATE_M, REF_ASYNC_ATE_M + 0.01)
-REF_ASYNC_MAP = {"keyframes": 15, "points": 4327}
-REF_ASYNC_DENSE = {"occupied": 347483, "triangles": 710294}
-REF_ASYNC_PER_KF = {"points": 288.46666666666664,
-                    "occupied": 23165.533333333333,
-                    "triangles": 46753.066666666666}
-REF_ASYNC_MIN_KF = 11
-REF_ASYNC_MAX_LOST = 55
-REF_ASYNC_LOOPS = 0
+REF_ASYNC_MAP = {"keyframes": 4, "points": 1610, "lines": 94}
+REF_ASYNC_DENSE = {"occupied": 123605, "triangles": 216120}
 
 # JAX package's figures on phase 9's run: bench.py's RGB-D-inertial
-# scenario (bench.py:376-384) over the timed pass's 90 frames (seed 1),
-# with the overlap thread off (JAX_PLATFORMS=cpu python
-# scripts/reference_vi.py --inline, CPU run, 80 s): every frame resolved
-# OK, the IMU initialized when the 13th keyframe was made, gravity cosine
-# 0.99986 to the truth, gyro bias 1.82e-3 from it, 23 keyframes made and
-# 13 live, 11 VI BA solves, all finite. Phase 9 holds the port to its ATE
+# scenario (bench.py:376-384) over the first 66 of the timed pass's 90
+# frames (seed 1), with the overlap thread off (JAX_PLATFORMS=cpu python
+# scripts/reference_vi.py --inline --frames 66, CPU run, 81 s): every
+# frame resolved OK, the IMU initialized when the 13th keyframe was made,
+# gravity cosine 0.99879 to the truth, gyro bias 1.43e-3 from it, 17
+# keyframes made and 11 live, 5 VI BA solves, all finite (over 60 frames
+# the init comes as late, leaving 3 solves). Phase 9 holds the port to its ATE
 # bound below, its initialization keyframe +-2 and its live keyframes and
 # points within +-25%; the gravity and bias gates are
 # tests/test_slam_e2e.py's (cosine > 0.98, bias within 5e-3).
-REF_VI = {"init_keyframe": 13, "gravity_cos": 0.9998567699802123,
-          "bias_gyro_err": 0.0018211505587536877,
-          "ate_rmse_m": 0.0050859069494292915,
-          "map": {"keyframes": 13, "points": 1848}, "vi_ba_ok": 11}
+REF_VI = {"init_keyframe": 13, "gravity_cos": 0.9987934432984156,
+          "bias_gyro_err": 0.0014336607067095,
+          "ate_rmse_m": 0.004861690667277721,
+          "map": {"keyframes": 11, "points": 1804}, "vi_ba_ok": 5}
 VI_ATE_BOUND_M = max(1.5 * REF_VI["ate_rmse_m"], REF_VI["ate_rmse_m"] + 0.01)
-N_VI_FRAMES = 90
+N_VI_FRAMES = 66
 
-# JAX package's figures on phase 10's run: the KB8 fisheye rig (CPU run of
-# JAX_PLATFORMS=cpu python scripts/reference_rig.py --phase 10, 90 frames,
-# 45 s: all OK). The port is held to the ATE bound below, its live
-# keyframes and points within +-25% of these, and on the first frame to
+# JAX package's figures on phase 10's run: the KB8 fisheye rig over the
+# first 45 of 120 poses of phase 2's sweep (CPU run of JAX_PLATFORMS=cpu
+# python scripts/reference_rig.py --phase 10 --frames 45, 67 s: all
+# OK). The port is held to the ATE bound below, its live keyframes and
+# points within +-25% of these, and on the first frame to
 # tests/test_stereo_rig.py's gates (>= 100 triangulated, |median relative
 # depth error| < 0.02, median |error| < 0.08).
-REF_RIG = {"ate_rmse_m": 0.014033678309171937,
-           "map": {"keyframes": 12, "points": 1352}, "keyframes_made": 18,
+REF_RIG = {"ate_rmse_m": 0.012289456903161126,
+           "map": {"keyframes": 8, "points": 1098}, "keyframes_made": 9,
            "first_frame": {"triangulated": 542,
                            "median_rel_err": 0.002783536911010742,
                            "median_abs_rel_err": 0.0468568429350853}}
 RIG_ATE_BOUND_M = max(1.5 * REF_RIG["ate_rmse_m"], REF_RIG["ate_rmse_m"] + 0.01)
-N_RIG_FRAMES = 90
+N_RIG_FRAMES = 45
+RIG_PATH_POSES = 120
 # JAX package's figures on phase 11's run: the same rig with rectify=True
 # and 2 cm dense mapping (CPU run of JAX_PLATFORMS=cpu python
-# scripts/reference_rig.py --phase 11, 60 frames, 47 s: all OK, 12
+# scripts/reference_rig.py --phase 11 --frames 40, 77 s: all OK, 8
 # keyframes made; the fine volume fills its 8192 blocks). The port is held
 # to the ATE bound below, one K3 launch per keyframe made, the occupied
 # voxels and mesh triangles within +-25% of these (the JAX package's CPU
@@ -269,15 +285,15 @@ N_RIG_FRAMES = 90
 # border semantics), the median |z - 3 m| within the JAX value + 2 cm (phase
 # 3's limit), and SGM on the first rectified pair to JAX's valid share
 # +-0.01 and median |depth - 3 m| + 5 mm (JAX on the CPU: 8.2 s).
-REF_RECT = {"ate_rmse_m": 0.006370806206753382,
-            "map": {"keyframes": 8, "points": 1008}, "keyframes_made": 12,
-            "occupied_voxels": 198741, "mesh_triangles_full": 202648,
+REF_RECT = {"ate_rmse_m": 0.0055807473845559275,
+            "map": {"keyframes": 8, "points": 986}, "keyframes_made": 8,
+            "occupied_voxels": 160715, "mesh_triangles_full": 143652,
             "median_abs_dz_m": 0.06999993324279785,
             "sgm_first_pair": {"valid_share": 0.6937890625,
                                "median_abs_depth_err_m": 0.15798723697662354}}
 RECT_ATE_BOUND_M = max(1.5 * REF_RECT["ate_rmse_m"],
                        REF_RECT["ate_rmse_m"] + 0.01)
-N_RECT_FRAMES = 60
+N_RECT_FRAMES = 40
 # JAX package's figures on phase 12's run: demo_inseg.py's configuration
 # at bench width over phase 5's room (no depth noise) on
 # orbit_loop_trajectory(60, radius=0.6, laps=0.5) (CPU run of
@@ -302,7 +318,51 @@ SEG_ATE_BOUND_M = max(1.5 * REF_SEG["ate_rmse_m"],
                       REF_SEG["ate_rmse_m"] + 0.01)
 N_SEG_FRAMES = 60
 
-N_FRAMES = 120
+# JAX package's figures on phase 13's run: System(sensor="mono") at
+# bench.py's camera and widths over tests/test_slam_e2e.py TestMonocular's
+# scene (seed 9) and 40-pose trajectory, loop closing and local BA on,
+# frames 28-30 blanked (CPU runs of JAX_PLATFORMS=cpu python
+# scripts/reference_mono.py --phase 13, 107 s for the first key): NOT_
+# INITIALIZED on frame 0, OK from frame 1, LOST on 28-30, OK again from 31
+# through the PnP branch (406 matches and 4 inliers at the first
+# candidate, 364 and 28 at the second), 8 live keyframes and 1383 points;
+# Sim3-aligned ATE over the OK frames 0.014281 m. Over five relocalization
+# / two-view keys (7, 1, 2, 3, 4) the init frame was 1 and the relocalizing
+# frame 31 every time, the ATE 0.01422-0.01572 m and the map the same. The
+# port's generator cannot replay jax.random's stream, so phase 13 holds it
+# to: frame 0 NOT_INITIALIZED, OK by frame 1 + 2, not OK on 28-30, OK again
+# by frame 31 + 3 after at least one PnP RANSAC, every later frame OK, the
+# ATE bound below, live keyframes and points within +-25%, and at least
+# one create_new_points stage that adds points.
+REF_MONO = {"ate_sim3_ok_m": 0.014281059602864443, "init_frame": 1,
+            "reloc_frame": 31, "map": {"keyframes": 8, "points": 1383}}
+MONO_BLACKOUT = (28, 31)
+MONO_ATE_BOUND_M = max(1.5 * REF_MONO["ate_sim3_ok_m"],
+                       REF_MONO["ate_sim3_ok_m"] + 0.01)
+# JAX package's figures on phase 14's run: RGB-D at 640x480 with
+# image_scale=0.5 (320x240 at 1024 features / 8 levels: the per-level ORB
+# path), local BA and loop closing on, no lines, 40 frames of seed 1's
+# wall, one map object (tests/test_objects_e2e.py's template: a 256 px
+# crop at offset 20 of the wall texture, 256 / tex_scale m wide, 345
+# template features) (CPU run of JAX_PLATFORMS=cpu python
+# scripts/reference_mono.py --phase 14, 79 s): all OK, 5 keyframes, 1125
+# points, the object detected at all 5 keyframes (13 inliers at the last),
+# its corners within 5 mm of the crop rectangle in x and y at z
+# 2.977-3.030. Phase 14 holds the port to: every frame OK, the ATE bound
+# below, keyframes and points within +-25%, the object detected at >= 4
+# keyframes, and tests/test_objects_e2e.py's corner gates.
+REF_SCALED = {"ate_rmse_m": 0.008550482888938568,
+              "map": {"keyframes": 5, "points": 1125},
+              "detected_keyframes": 5, "n_inliers_last": 13,
+              "template_features": 345}
+SCALED_ATE_BOUND_M = max(1.5 * REF_SCALED["ate_rmse_m"],
+                         REF_SCALED["ate_rmse_m"] + 0.01)
+N_MONO_FRAMES = 40
+
+# phases 2-4 and 6-7: bench.py's sweep (default_trajectory) in 40 frames,
+# three times the step of a 120-frame run, to keep the script well inside
+# its time limit
+N_FRAMES = 40
 # K1's (Q, K) shapes on phase 2's path
 K1_MIX_SHAPES = ((4096, 1024), (2048, 1024), (1024, 1024), (512, 160),
                  (256, 160), (128, 160))
@@ -328,6 +388,17 @@ BRACKET_CYCLES = 2_000_000
 def _fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+_LAP = [time.perf_counter()]
+
+
+def _lap(phase: int) -> None:
+    """Print the wall seconds since the previous lap (the script start for
+    phase 0): what each phase costs of the script's time limit."""
+    now = time.perf_counter()
+    print(f"phase {phase}: wall {now - _LAP[0]:.1f} s")
+    _LAP[0] = now
 
 
 def _time_ms(torch, fn, reps: int = 100, warmup: int = 5) -> float:
@@ -841,7 +912,7 @@ def _phase5(torch, cam, brackets, k1_ms_at: dict, words) -> dict:
     frames = _room_frames(cam, synthetic)
     hamming.launches = cc_labels.launches = stereo.launches = 0
     hamming.shapes.clear()
-    states, ms, closing_ms = [], [], []
+    states, ms = [], []
     with brackets.run():
         for ts, g, d, _, _ in frames:
             t1 = time.perf_counter()
@@ -852,7 +923,6 @@ def _phase5(torch, cam, brackets, k1_ms_at: dict, words) -> dict:
             # the dense map right after a frame that closed a loop (and so
             # rebuilt it), counted outside the frame's timed scopes
             if len(after_rebuild) < len(system.loops_closed):
-                closing_ms.append(ms[-1])
                 _, faces = meshing.marching_tetrahedra(dm.volume)
                 after_rebuild.append({"occupied": len(dm.cloud()[0]),
                                       "triangles": len(faces),
@@ -936,7 +1006,7 @@ def _phase5(torch, cam, brackets, k1_ms_at: dict, words) -> dict:
     if launches["hamming"] < 2 * (N_LOOP_FRAMES - 1):
         _fail(f"K1 launched {launches['hamming']} times in phase 5")
     return {"launches": launches, "mix": mix, "k1_err": err,
-            "k1_device_ms": dev_ms, "closing_ms": closing_ms}
+            "k1_device_ms": dev_ms}
 
 
 def _phase6(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
@@ -953,6 +1023,7 @@ def _phase6(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
                        dense_mapping=False, pipelined=False,
                        depth_upload_decimation=2)
     system = System(cam, cfg, device="cuda")
+    system.tracker.min_kf_recently_lost = RELOC_RECENTLY_LOST_KFS
     reloc_idx = _k1_inside(brackets, system.tracker, "_relocalize")
     frames = list(scene.sequence(n_frames=N_FRAMES))
     a, b = RELOC_BLACKOUT
@@ -1019,11 +1090,11 @@ def _bench_flags(**kw) -> dict:
                      pipeline_overlap=True, interleaved_backend=True), **kw)
 
 
-def _room_frames(cam, synthetic, n: int = N_LOOP_FRAMES):
+def _room_frames(cam, synthetic):
     """Phase 5's room orbit with its depth noise."""
     room = synthetic.SyntheticRoom(cam, half=3.0, tex_size=2048, seed=3)
     poses = synthetic.orbit_loop_trajectory(N_LOOP_FRAMES, radius=1.0,
-                                            laps=1.375)[:n]
+                                            laps=1.375)
     frames = []
     for i, (ts, g, d, R, t) in enumerate(room.sequence(poses)):
         rng = np.random.default_rng(1000 + i)
@@ -1181,19 +1252,18 @@ def _phase7(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
             "k1_device_ms": dev_ms, **out}
 
 
-def _phase8(torch, cam, k1_ms_at: dict, words, sync_closing_ms) -> dict:
+def _phase8(torch, cam, scene, k1_ms_at: dict, words) -> dict:
     """bench.py's PLVS_BENCH_ASYNC=1 path: phase 7's configuration with the
-    mapper actor, points only, over phase 5's room orbit; returns the
-    launches and the largest K1 error at new shapes. K1 launches go
-    unbracketed: the actor launches on the same stream from its own
-    thread, so a bracket could hold its kernels."""
-    from plvs_tpu_torch.io import synthetic
+    mapper actor over phase 2's scene; returns the launches and the largest
+    K1 error at new shapes. K1 launches go unbracketed: the actor launches
+    on the same stream from its own thread, so a bracket could hold its
+    kernels."""
     from plvs_tpu_torch.ops import cc_labels, hamming, stereo
     from plvs_tpu_torch.slam import System, SystemConfig
 
-    system = System(cam, SystemConfig(**_bench_flags(
-        use_lines=False, async_mapping=True)), device="cuda")
-    frames = _room_frames(cam, synthetic)
+    system = System(cam, SystemConfig(**_bench_flags(async_mapping=True)),
+                    device="cuda")
+    frames = list(scene.sequence(n_frames=N_FRAMES))
     hamming.launches = cc_labels.launches = stereo.launches = 0
     hamming.shapes.clear()
     run = _drive_pipelined(torch, system, frames)
@@ -1205,16 +1275,15 @@ def _phase8(torch, cam, k1_ms_at: dict, words, sync_closing_ms) -> dict:
     loops = system.loops_closed
     closing = [float(m) for m, c in zip(run["ms"], run["loop_frame"]) if c]
     print(f"phase 8: bench.py's configuration with async_mapping, "
-          f"{len(frames)} frames 640x480 of the room orbit, points only: "
+          f"{len(frames)} frames 640x480: "
           f"track_rgbd's return on the tracking thread, keyframe frames "
           f"({int(kf.sum())}) p50 {np.percentile(ms[kf], 50):.2f} ms p90 "
           f"{np.percentile(ms[kf], 90):.2f}, other frames p50 "
           f"{np.percentile(ms[~kf], 50):.2f} p90 "
           f"{np.percentile(ms[~kf], 90):.2f}, max {ms.max():.2f} (first "
           f"frame {run['ms'][0]:.1f}); frames during which a loop closed "
-          f"(ms): {closing} (phase 5's synchronous closing frames in this "
-          f"run: {[round(m, 2) for m in sync_closing_ms]}); flush "
-          f"{run['flush_ms']:.2f} ms; launches {launches}")
+          f"(ms): {closing}; flush {run['flush_ms']:.2f} ms; launches "
+          f"{launches}")
     for kf_id, info in loops:
         gba = info.get("global_ba") or {}
         print(f"phase 8: loop at keyframe {kf_id} against "
@@ -1223,27 +1292,15 @@ def _phase8(torch, cam, k1_ms_at: dict, words, sync_closing_ms) -> dict:
               f"{gba.get('cost0', float('nan')):.3f} -> "
               f"{gba.get('cost', float('nan')):.3f}")
     out = _hold_run(8, system, frames, REF_ASYNC_ATE_M, ASYNC_ATE_BOUND_M)
-    lost = [i for i, s_ in enumerate(run["resolved"]) if i and s_ != 2]
-    n_kf = out["map"]["keyframes"]
-    got = {**out["map"], **out["dense"]}
-    density = {k: got[k] / max(n_kf, 1) for k in REF_ASYNC_PER_KF}
-    print(f"phase 8: not OK at resolution on frames {lost} (JAX: 58-87 in "
-          f"four runs of five, none in one); per live keyframe "
-          + ", ".join(f"{k} {v:.1f} (JAX {REF_ASYNC_PER_KF[k]:.1f})"
-                      for k, v in density.items())
-          + f"; JAX's medians: map {REF_ASYNC_MAP}, dense "
+    print(f"phase 8: JAX's medians: map {REF_ASYNC_MAP}, dense "
           f"{REF_ASYNC_DENSE}")
-    if len(lost) > REF_ASYNC_MAX_LOST or any(
-            i >= len(frames) - 10 for i in lost):
-        _fail(f"phase 8: frames {lost} not OK at resolution; the JAX runs "
-              f"lost at most {REF_ASYNC_MAX_LOST} and tracked the last 10")
-    if n_kf < 0.75 * REF_ASYNC_MIN_KF:
-        _fail(f"phase 8: {n_kf} live keyframes; the JAX runs kept at least "
-              f"{REF_ASYNC_MIN_KF}")
-    for key, ref in REF_ASYNC_PER_KF.items():
-        if abs(density[key] - ref) > 0.25 * ref:
-            _fail(f"phase 8 {key} per live keyframe {density[key]:.1f} not "
-                  f"within 25% of JAX's {ref:.1f}")
+    lost = [i for i, s_ in enumerate(run["resolved"]) if i and s_ != 2]
+    if lost:
+        _fail(f"phase 8: frames {lost} not OK at resolution")
+    got = {**out["map"], **out["dense"]}
+    for key, ref in {**REF_ASYNC_MAP, **REF_ASYNC_DENSE}.items():
+        if abs(got[key] - ref) > 0.25 * ref:
+            _fail(f"phase 8 {key} {got[key]} not within 25% of JAX's {ref}")
     print("phase 8: K1 launches by Q x K: " + ", ".join(
         f"{q}x{k} {n}" for (q, k), n in sorted(mix.items())))
     err = _hold_k1(torch, hamming, words, k1_ms_at, mix, 8)
@@ -1256,9 +1313,6 @@ def _phase8(torch, cam, k1_ms_at: dict, words, sync_closing_ms) -> dict:
         _fail(f"phase 8: the mapper actor failed: {error!r}")
     if actor.thread.is_alive():
         _fail("phase 8: shutdown() did not join the actor's thread")
-    if len(loops) < REF_ASYNC_LOOPS:
-        _fail(f"phase 8 closed {len(loops)} loops; JAX closes "
-              f"{REF_ASYNC_LOOPS}")
     if launches["hamming"] < 2 * (len(frames) - 1):
         _fail(f"K1 launched {launches['hamming']} times in phase 8")
     return {"launches": launches, "mix": mix, "k1_err": err, **out}
@@ -1302,8 +1356,8 @@ def _phase9(torch, cam, k1_ms_at: dict, words) -> dict:
     """Slice 8's path: bench.py's RGB-D-inertial scenario — 640x480, 1024
     features, 8 levels, no lines, local BA, use_imu, pipelined at depth 2
     with the overlap thread, fixed BA shapes, a keyframe at least every 4
-    frames — over the 90 frames of bench.py's timed pass (seed 1), then
-    flush(); returns the launches and the largest K1 error at new shapes.
+    frames — over the first N_VI_FRAMES of bench.py's timed pass (seed 1),
+    then flush(); returns the launches and the largest K1 error at new shapes.
     K1 launches go unbracketed, so track_rgbd's times are the run's own."""
     from plvs_tpu_torch.io import synthetic
     from plvs_tpu_torch.ops import cc_labels, hamming, stereo
@@ -1405,8 +1459,9 @@ def _phase9(torch, cam, k1_ms_at: dict, words) -> dict:
 
 
 def _rig_frames(synthetic, cameras, n: int):
-    """Phases 10-11's scene: phase 2's wall and poses seen through the KB8
-    fisheye pair at 640x480; returns (cam_l, cam_r, T_c1_c2, rig, frames
+    """Phases 10-11's scene: phase 2's wall, and the first n of its path's
+    poses spread over RIG_PATH_POSES frames, seen through the KB8 fisheye
+    pair at 640x480; returns (cam_l, cam_r, T_c1_c2, rig, frames
     [(ts, left, right, R, t)])."""
     size = dict(width=640, height=480)
     cam_l = cameras.kannala_brandt8(*synthetic.RIG_KB8_LEFT, **size)
@@ -1415,7 +1470,7 @@ def _rig_frames(synthetic, cameras, n: int):
     rig = synthetic.SyntheticRig(
         cam_l, cam_r, T, wall_z=WALL_Z, texture=synthetic.make_structured_texture(
             2048, rng=np.random.default_rng(7)), tex_scale=420.0)
-    poses = synthetic.default_trajectory(N_FRAMES)[:n]
+    poses = synthetic.default_trajectory(RIG_PATH_POSES)[:n]
     return cam_l, cam_r, T, rig, list(rig.sequence(poses))
 
 
@@ -1805,6 +1860,247 @@ def _phase12(torch, cam, k1_ms_at: dict, words) -> dict:
             "esdf_ms": esdf_ms, "esdf_ops": esdf_ops}
 
 
+def _mono_poses(n: int = N_MONO_FRAMES):
+    """tests/test_slam_e2e.py TestMonocular's translation-dominant
+    trajectory (scripts/reference_mono.py's)."""
+    poses = []
+    for i in range(n):
+        u = i / (n - 1)
+        C = np.array([1.6 * u, 0.1 * np.sin(2 * np.pi * u), 0.3 * u],
+                     np.float32)
+        poses.append((np.eye(3, dtype=np.float32), -C))
+    return poses
+
+
+def _synced_timer(torch, log: list, ops: list | None = None):
+    """A wrapper factory: the wrapped call is timed between two device
+    synchronisations into ``log``; with ``ops``, the third call is counted
+    instead (its dispatched non-view operations into ``ops``)."""
+    def wrap(fn):
+        def timed(*a, **kw):
+            if ops is not None and len(log) == 2 and not ops:
+                out = [None]
+
+                def call():
+                    out[0] = fn(*a, **kw)
+
+                ops.append(_count_ops(torch, call))
+                return out[0]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            log.append((time.perf_counter() - t1) * 1e3)
+            return out
+        return timed
+    return wrap
+
+
+def _phase13(torch, cam, brackets, k1_ms_at: dict, words) -> dict:
+    """Slice 10's monocular path: ``System.track_monocular`` at bench
+    width (two-view initialization, map growth by triangulation, local BA,
+    loop closing) with a blackout that the PnP branch of relocalization
+    recovers from; returns the launches and K1's error at new shapes."""
+    from plvs_tpu_torch.io import evaluation, synthetic
+    from plvs_tpu_torch.ops import cc_labels, hamming, stereo
+    from plvs_tpu_torch.slam import System, SystemConfig
+    from plvs_tpu_torch.slam.tracking import NOT_INITIALIZED, OK
+
+    scene = synthetic.SyntheticRGBD(cam, wall_z=WALL_Z, seed=9)
+    frames = list(scene.sequence(poses=_mono_poses()))
+    system = System(cam, SystemConfig(
+        num_features=1024, n_levels=8, scale=1.2, max_kf=64, max_pts=16384,
+        loop_closing=True, sensor="mono", max_kf_interval=5,
+        min_kf_inliers=25, pipelined=False), device="cuda")
+    lm, tr = system.local_mapper, system.tracker
+    cnp_ms, cnp_ops = [], []
+    lm.create_new_points = _synced_timer(torch, cnp_ms, cnp_ops)(
+        lm.create_new_points)
+    reloc_idx = _k1_inside(brackets, tr, "_relocalize")
+    a, b = MONO_BLACKOUT
+    hamming.launches = cc_labels.launches = stereo.launches = 0
+    hamming.shapes.clear()
+    states, ms, pnp_at = [], [], []
+    with brackets.run():
+        for i, (ts, g, _, _, _) in enumerate(frames):
+            if a <= i < b:
+                g = np.zeros_like(g)
+            t1 = time.perf_counter()
+            state, _, _ = system.track_monocular(g, ts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            states.append(int(state))
+            pnp_at.append(tr.n_pnp_calls)
+    launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
+                "stereo_wta": stereo.launches}
+    mix = dict(hamming.shapes)
+    by_shape = brackets.ms_by_shape()
+    reloc_by_shape = brackets.ms_by_shape(reloc_idx)
+    ok = [i for i, s_ in enumerate(states) if s_ == OK]
+    init = ok[0] if ok else None
+    reloc = next((i for i in range(b, len(states)) if states[i] == OK), None)
+    traj = system.trajectory_tum()
+    gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
+    ate = (evaluation.ate_rmse(traj[ok, 1:4], gt[ok], align=True,
+                               with_scale=True) if len(ok) > 2 else math.inf)
+    stats = system.map_statistics()
+    steady = np.asarray([m for i, m in enumerate(ms)
+                         if i not in (0, init, reloc) and not a <= i < b])
+    added = list(lm.new_points_log)
+    print(f"phase 13: {N_MONO_FRAMES} monocular frames 640x480 (1024 "
+          f"features, 8 levels, local BA, loop closing) with frames "
+          f"{a}-{b - 1} blank: states {states}; init frame {init} (JAX "
+          f"{REF_MONO['init_frame']}), relocalized at frame {reloc} (JAX "
+          f"{REF_MONO['reloc_frame']}) after {tr.n_pnp_calls} PnP RANSAC "
+          f"call(s); per-frame ms p50 {np.percentile(steady, 50):.2f} p90 "
+          f"{np.percentile(steady, 90):.2f} (other frames), init frame "
+          f"{ms[init] if init is not None else float('nan'):.1f}, "
+          f"relocalizing frame "
+          f"{ms[reloc] if reloc is not None else float('nan'):.1f}, blank "
+          f"frames {np.median(ms[a:b]):.1f} median; map {stats} (JAX "
+          f"{REF_MONO['map']}); Sim3 ATE over the OK frames {ate:.6f} m "
+          f"(JAX {REF_MONO['ate_sim3_ok_m']:.6f} m, bound "
+          f"{MONO_ATE_BOUND_M:.6f} m); launches {launches}")
+    print(f"phase 13: create_new_points per keyframe (synchronised): "
+          f"median {np.median(cnp_ms):.2f} ms, max {max(cnp_ms):.2f} ms over "
+          f"{len(cnp_ms)} timed keyframes; {cnp_ops[0] if cnp_ops else 0} "
+          f"dispatched non-view operations in the third call; points added "
+          f"{added}")
+    print("phase 13: K1 launches by Q x K: " + ", ".join(
+        f"{q}x{k} {n}" for (q, k), n in sorted(mix.items())))
+    err = _hold_k1(torch, hamming, words, k1_ms_at, mix, 13)
+    dev_ms = _k1_report(13, "over the run", by_shape, k1_ms_at, brackets)[0]
+    _k1_report(13, "inside relocalization", reloc_by_shape, k1_ms_at)
+    if states[0] != NOT_INITIALIZED:
+        _fail(f"phase 13 frame 0 state {states[0]}")
+    if init is None or init > REF_MONO["init_frame"] + 2:
+        _fail(f"phase 13 initialized at frame {init}; JAX at "
+              f"{REF_MONO['init_frame']}")
+    if any(states[i] == OK for i in range(a, b)):
+        _fail(f"phase 13 OK on a blank frame: {states[a:b]}")
+    if reloc is None or reloc > REF_MONO["reloc_frame"] + 3:
+        _fail(f"phase 13 relocalized at frame {reloc}; JAX at "
+              f"{REF_MONO['reloc_frame']}")
+    if pnp_at[reloc] < 1:
+        _fail("phase 13 relocalized without a PnP RANSAC")
+    if not all(s_ == OK for s_ in states[reloc:]) or not all(
+            s_ == OK for s_ in states[init:a]):
+        _fail(f"phase 13 tracking states {states}")
+    if not np.isfinite(traj[:, 1:4]).all() or ate > MONO_ATE_BOUND_M:
+        _fail(f"phase 13 ATE {ate} m exceeds the bound {MONO_ATE_BOUND_M} m")
+    for key, ref in REF_MONO["map"].items():
+        if abs(stats[key] - ref) > 0.25 * ref:
+            _fail(f"phase 13 {key} {stats[key]} not within 25% of JAX's {ref}")
+    if not any(n > 0 for n in added):
+        _fail(f"phase 13: no create_new_points stage added points: {added}")
+    return {"launches": launches, "mix": mix, "k1_err": err,
+            "k1_device_ms": dev_ms}
+
+
+def _phase14(torch, cam, k1_ms_at: dict, words) -> dict:
+    """Slice 10's image scaling and map objects: RGB-D at 640x480 with
+    image_scale=0.5 (the per-level ORB path at 320x240), local BA and loop
+    closing, one planar map object; returns the launches and K1's error at
+    new shapes."""
+    from plvs_tpu_torch.features import orb
+    from plvs_tpu_torch.io import evaluation, synthetic
+    from plvs_tpu_torch.ops import cc_labels, hamming, stereo
+    from plvs_tpu_torch.slam import System, SystemConfig
+    from plvs_tpu_torch.slam.tracking import OK
+
+    scene = synthetic.SyntheticRGBD(cam, wall_z=WALL_Z, seed=1)
+    frames = list(scene.sequence(n_frames=N_MONO_FRAMES))
+    system = System(cam, SystemConfig(
+        num_features=1024, n_levels=8, scale=1.2, max_kf=64, max_pts=16384,
+        image_scale=0.5, local_ba=True, loop_closing=True, use_lines=False,
+        pipelined=False), device="cuda")
+    orb_log = {}
+    extract = orb.extract
+
+    def timed_extract(img, num_features=1024, *a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = extract(img, num_features, *a, **kw)
+        torch.cuda.synchronize()
+        key = (tuple(img.shape), num_features)
+        orb_log.setdefault(key, []).append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    crop, off = 256, 20
+    metric_w = crop / scene.tex_scale
+    orb.extract = timed_extract
+    hamming.launches = cc_labels.launches = stereo.launches = 0
+    hamming.shapes.clear()
+    states, ms = [], []
+    try:
+        oid = system.add_map_object(scene.tex[off:off + crop,
+                                              off:off + crop], metric_w)
+        for ts, g, d, _, _ in frames:
+            t1 = time.perf_counter()
+            state, _, _ = system.track_rgbd(g, d, ts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            states.append(int(state))
+    finally:
+        orb.extract = extract
+    launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
+                "stereo_wta": stereo.launches}
+    mix = dict(hamming.shapes)
+    est = system.trajectory_tum()[:, 1:4]
+    gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
+    ate = evaluation.ate_rmse(est, gt, align=True)
+    stats = system.map_statistics()
+    rec = system.object_store.objects[oid]
+    n_tpl = len(rec.template.desc)
+    corners = rec.corners_world()
+    steady = np.asarray(ms[1:])
+    print(f"phase 14: {N_MONO_FRAMES} RGB-D frames 640x480 at image_scale "
+          f"0.5 (working size {system.cam.width}x{system.cam.height}, 1024 "
+          f"features, 8 levels, local BA, loop closing, one map object): "
+          f"per-frame ms p50 {np.percentile(steady, 50):.2f} p90 "
+          f"{np.percentile(steady, 90):.2f} (first frame {ms[0]:.1f}); map "
+          f"{stats} (JAX {REF_SCALED['map']}); ATE-RMSE {ate:.6f} m (JAX "
+          f"{REF_SCALED['ate_rmse_m']:.6f} m, bound "
+          f"{SCALED_ATE_BOUND_M:.6f} m); launches {launches}")
+    print(f"phase 14: object: {n_tpl} template features (JAX "
+          f"{REF_SCALED['template_features']}), detected at keyframes "
+          f"{sorted(rec.obs)} (JAX {REF_SCALED['detected_keyframes']} "
+          f"keyframes), {rec.n_inliers} inliers at the last (JAX "
+          f"{REF_SCALED['n_inliers_last']}), corners "
+          f"{None if corners is None else np.round(corners, 4).tolist()} "
+          f"(crop offset {off / scene.tex_scale:.4f} m, width "
+          f"{metric_w:.4f} m)")
+    print("phase 14: per-level ORB extraction (synchronised), by image and "
+          "budget: " + ", ".join(
+              f"{w}x{h} at {n}: median {np.median(v):.2f} ms over {len(v)}"
+              for ((h, w), n), v in sorted(orb_log.items())))
+    print("phase 14: K1 launches by Q x K: " + ", ".join(
+        f"{q}x{k} {n}" for (q, k), n in sorted(mix.items())))
+    err = _hold_k1(torch, hamming, words, k1_ms_at, mix, 14)
+    if not all(s_ == OK for s_ in states):
+        _fail(f"phase 14 tracking states {states}")
+    if not np.isfinite(est).all() or ate > SCALED_ATE_BOUND_M:
+        _fail(f"phase 14 ATE {ate} m exceeds the bound {SCALED_ATE_BOUND_M} m")
+    for key, ref in REF_SCALED["map"].items():
+        if abs(stats[key] - ref) > 0.25 * ref:
+            _fail(f"phase 14 {key} {stats[key]} not within 25% of JAX's {ref}")
+    if len(rec.obs) < REF_SCALED["detected_keyframes"] - 1:
+        _fail(f"phase 14 object detected at {sorted(rec.obs)}")
+    if (n_tpl, system.config.num_features) not in mix:
+        _fail(f"phase 14: K1 never ran at the template's {n_tpl}x1024")
+    if corners is None or not np.allclose(corners[:, 2], WALL_Z, atol=0.25):
+        _fail(f"phase 14 object corners {corners} off the wall")
+    exp0 = np.array([off, off]) / scene.tex_scale
+    if np.linalg.norm(corners[0, :2] - exp0) >= 0.25:
+        _fail(f"phase 14 object corner 0 {corners[0]}, expected {exp0}")
+    w_est = np.linalg.norm(corners[1] - corners[0])
+    if abs(w_est - metric_w) >= 0.2 * metric_w:
+        _fail(f"phase 14 object width {w_est} m, expected {metric_w} m")
+    return {"launches": launches, "mix": mix, "k1_err": err,
+            "orb_ms": {f"{k[0][1]}x{k[0][0]}@{k[1]}": float(np.median(v))
+                       for k, v in orb_log.items()}}
+
+
 def main() -> int:
     import torch
 
@@ -1841,6 +2137,7 @@ def main() -> int:
     _build.build_all()
     print(f"phase 0: built {_build.sources()} in "
           f"{time.perf_counter() - t0:.2f} s")
+    _lap(0)
 
     rng = np.random.default_rng(0)
     cam = cameras.pinhole(520.9, 521.0, 325.1, 249.7, width=640, height=480,
@@ -2056,6 +2353,7 @@ def main() -> int:
     print(f"phase 1: a K1 bracket around no kernel reads "
           f"{brackets.empty_ms():.6f} ms; the spin before it lasts "
           f"{brackets.spin_ms:.6f} ms")
+    _lap(1)
     cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
                        max_pts=65536, use_lines=True, max_lines=160,
                        local_ba=False, loop_closing=False,
@@ -2099,25 +2397,38 @@ def main() -> int:
     if not np.isfinite(est).all() or ate > ATE_BOUND_M:
         _fail(f"ATE {ate} m exceeds the bound {ATE_BOUND_M} m")
 
-    launches3 = _phase3(torch, cam, scene, brackets, k1_ms_at, words)
-    launches4 = _phase4(torch, cam, scene, brackets, k1_ms_at, words)
-    run5 = _phase5(torch, cam, brackets, k1_ms_at, words)
-    run6 = _phase6(torch, cam, scene, brackets, k1_ms_at, words)
-    run7 = _phase7(torch, cam, scene, brackets, k1_ms_at, words)
-    run8 = _phase8(torch, cam, k1_ms_at, words, run5["closing_ms"])
-    run9 = _phase9(torch, cam, k1_ms_at, words)
-    run10 = _phase10(torch, brackets, k1_ms_at, words)
-    run11 = _phase11(torch, brackets, k1_ms_at, words)
-    run12 = _phase12(torch, cam, k1_ms_at, words)
+    _lap(2)
+
+    def timed(phase, fn, *args):
+        out = fn(*args)
+        _lap(phase)
+        return out
+
+    launches3 = timed(3, _phase3, torch, cam, scene, brackets, k1_ms_at,
+                      words)
+    launches4 = timed(4, _phase4, torch, cam, scene, brackets, k1_ms_at,
+                      words)
+    run5 = timed(5, _phase5, torch, cam, brackets, k1_ms_at, words)
+    run6 = timed(6, _phase6, torch, cam, scene, brackets, k1_ms_at, words)
+    run7 = timed(7, _phase7, torch, cam, scene, brackets, k1_ms_at, words)
+    run8 = timed(8, _phase8, torch, cam, scene, k1_ms_at, words)
+    run9 = timed(9, _phase9, torch, cam, k1_ms_at, words)
+    run10 = timed(10, _phase10, torch, brackets, k1_ms_at, words)
+    run11 = timed(11, _phase11, torch, brackets, k1_ms_at, words)
+    run12 = timed(12, _phase12, torch, cam, k1_ms_at, words)
+    run13 = timed(13, _phase13, torch, cam, brackets, k1_ms_at, words)
+    run14 = timed(14, _phase14, torch, cam, k1_ms_at, words)
     launches5, launches6 = run5["launches"], run6["launches"]
     launches7, launches8 = run7["launches"], run8["launches"]
     launches9 = run9["launches"]
     later = {10: run10["launches"], 11: run11["launches"],
-             12: run12["launches"]}
+             12: run12["launches"], 13: run13["launches"],
+             14: run14["launches"]}
     k1_err = max(k1_err, launches3["k1_err"], launches4["k1_err"],
                  run5["k1_err"], run6["k1_err"], run7["k1_err"],
                  run8["k1_err"], run9["k1_err"], run10["k1_err"],
-                 run11["k1_err"], run12["k1_err"])
+                 run11["k1_err"], run12["k1_err"], run13["k1_err"],
+                 run14["k1_err"])
 
     kernels = [
         {"name": "hamming_matrix", "route": "cuda",
@@ -2141,7 +2452,8 @@ def main() -> int:
          "device_ms_phase7": run7["k1_device_ms"],
          **{f"launches_phase{p}": v["hamming"] for p, v in later.items()},
          "device_ms_phase10": run10["k1_device_ms"],
-         "device_ms_phase11": run11["k1_device_ms"]},
+         "device_ms_phase11": run11["k1_device_ms"],
+         "device_ms_phase13": run13["k1_device_ms"]},
         {"name": "cc_min_labels", "route": "cuda",
          "source": "plvs_tpu_torch/csrc/cc_labels.cu",
          "replaces": "plvs_tpu/ops/cc_labels.py:95",

@@ -6,9 +6,9 @@ angle weights and the LBD pairs (regenerated from the same seeds in
 the keyframe database and the dense volume. The functions here rebuild the
 camera, a vocabulary, the map, the database's per-keyframe word lists, a
 bundle-adjustment problem, a pose-graph problem, the inertial runtime's
-state (its preintegrations among it), the TSDF volume (labels included)
-and the dense mapper (both volumes, the label map, the stored keyframes)
-from plain numpy data, so state built by plvs_tpu can be carried on by
+state (its preintegrations among it), the map objects (templates and
+records), the TSDF volume (labels included) and the dense mapper (both
+volumes, the label map, the stored keyframes) from plain numpy data, so state built by plvs_tpu can be carried on by
 plvs_tpu_torch (the tests track one frame against an identical map, run one
 keyframe backend pass, one loop-closer pass, one bundle adjustment and one
 pose graph on identical inputs, and integrate and mesh an identical
@@ -27,6 +27,7 @@ from .geometry import cameras
 from .imu import preintegration as pre
 from .slam.inertial import InertialRuntime
 from .slam.keyframe_database import KeyFrameDatabase
+from .slam.map_objects import ObjectRecord, ObjectStore, ObjectTemplate
 from .slam.map_store import MapStore
 from .solvers import ba, pose_graph
 from .vocab import bow
@@ -168,6 +169,39 @@ def inertial_runtime_from_numpy(state: dict, device="cuda",
     rt._last_pose = None if lp is None else (
         float(lp[0]), np.array(lp[1], np.float32, copy=True))
     return rt
+
+
+def object_store_from_numpy(cam: cameras.Camera, objects, device="cuda",
+                            **kw) -> ObjectStore:
+    """A port ObjectStore carrying a JAX ObjectStore's objects: each entry
+    of ``objects`` gives the template (``plane_xy``, ``desc``, ``corners``,
+    ``object_id``) and the record (``R_wo``, ``t_wo``, ``s_wo``,
+    ``detected``, ``n_inliers``, ``obs`` as ``{kf: (uv, mask)}``), as
+    attributes (a JAX ObjectRecord itself) or as a dict."""
+    store = ObjectStore(cam, device=device, **kw)
+
+    def get(o, name, default=None):
+        return o.get(name, default) if isinstance(o, dict) else getattr(
+            o, name, default)
+
+    def arr(a, dtype):
+        return None if a is None else np.array(a, dtype, copy=True)
+
+    for rec in objects:
+        t = get(rec, "template")
+        tpl = ObjectTemplate(plane_xy=arr(get(t, "plane_xy"), np.float32),
+                             desc=arr(get(t, "desc"), np.uint32),
+                             corners=arr(get(t, "corners"), np.float32),
+                             object_id=int(get(t, "object_id", 0)))
+        store.objects.append(ObjectRecord(
+            template=tpl, R_wo=arr(get(rec, "R_wo"), np.float32),
+            t_wo=arr(get(rec, "t_wo"), np.float32),
+            s_wo=float(get(rec, "s_wo", 1.0)),
+            detected=bool(get(rec, "detected", False)),
+            n_inliers=int(get(rec, "n_inliers", 0)),
+            obs={int(k): (arr(uv, np.float32), arr(m, bool))
+                 for k, (uv, m) in get(rec, "obs", {}).items()}))
+    return store
 
 
 def tsdf_state(vol) -> dict:

@@ -4,6 +4,9 @@ Counterpart of plvs_tpu/features/fast.py. The segment test runs for every
 pixel at once (16 rolled copies), NMS is a max-pool compare, and spatial
 uniformity comes from a per-cell argmax and a global top-k over cells.
 
+:func:`detect` takes one pyramid level, :func:`detect_batched` every
+level of an edge-padded stack at once.
+
 ``lax.top_k`` breaks ties toward the lower index and FAST scores tie
 often; ``torch.topk`` promises no tie order, so the port ranks with a
 stable descending sort and takes the first k (:func:`top_k`).
@@ -84,6 +87,60 @@ def _cell_max_mask(score: torch.Tensor, cell: int) -> torch.Tensor:
     return torch.where((score >= up) & (score > 0), score, 0.0)
 
 
+def _select_cells(sel: torch.Tensor, cell: int, kmax: int):
+    """Per-cell winner of an [L, H, W] rank map, then the ``kmax`` best
+    cells per level. Returns (xy [L, k, 2], top [L, k]), k <= kmax."""
+    L, H, W = sel.shape
+    selp = F.pad(sel, (0, (-W) % cell, 0, (-H) % cell))
+    hc, wc = selp.shape[1] // cell, selp.shape[2] // cell
+    cells = selp.reshape(L, hc, cell, wc, cell).permute(0, 1, 3, 2, 4)
+    cells = cells.reshape(L, hc * wc, cell * cell)
+    cell_best = cells.amax(dim=-1)
+    cell_arg = torch.argmax(cells, dim=-1)  # first maximum, as jnp.argmax
+    k = min(kmax, cell_best.shape[1])
+    top, cidx = top_k(cell_best, k)
+    off = torch.gather(cell_arg, 1, cidx)
+    cy = torch.div(cidx, wc, rounding_mode="floor")
+    cx = cidx % wc
+    yy = (cy * cell + torch.div(off, cell, rounding_mode="floor")).float()
+    xx = (cx * cell + off % cell).float()
+    return torch.stack([xx, yy], -1), top
+
+
+def _finish(xy, top, kmax: int, big: float):
+    """(xy, score, valid) padded to ``kmax`` rows per level."""
+    L, k = top.shape
+    valid = top > 0
+    score = torch.where(top > big / 2, top - big, top)
+    if k < kmax:
+        pad = kmax - k
+        xy = torch.cat([xy, xy.new_zeros((L, pad, 2))], 1)
+        score = torch.cat([score, score.new_zeros((L, pad))], 1)
+        valid = torch.cat([valid, valid.new_zeros((L, pad))], 1)
+    return xy, score, valid
+
+
+def detect(img: torch.Tensor, num_features: int, threshold_hi: float = 20.0,
+           threshold_lo: float = 7.0, border: int = 16, cell: int = 16):
+    """Up to ``num_features`` uniformly spread corners of one [H, W] level:
+    hi-threshold corners win their cell, cells without one fall back to
+    lo-threshold corners (ranked below every hi one). Returns (xy [N, 2]
+    (x, y), score [N], valid [N])."""
+    h, w = img.shape
+    s_lo, s_hi = fast_score2(img, threshold_lo, threshold_hi)
+    ys = torch.arange(h, device=img.device)[:, None]
+    xs = torch.arange(w, device=img.device)[None, :]
+    inb = (ys >= border) & (ys < h - border) & (xs >= border) \
+        & (xs < w - border)
+    s_hi = torch.where(inb, nms3(s_hi), 0.0)
+    s_lo = torch.where(inb, nms3(s_lo), 0.0)
+    BIG = 1e6
+    sel = torch.where(s_hi > 0, s_hi + BIG, s_lo)
+    xy, top = _select_cells(sel[None], cell, num_features)
+    xy, score, valid = _finish(xy, top, num_features, BIG)
+    return xy[0], score[0], valid[0]
+
+
 def detect_batched(stack: torch.Tensor, shapes, num_features,
                    threshold_hi: float = 20.0, threshold_lo: float = 7.0,
                    border: int = 16, cell: int = 16):
@@ -102,26 +159,6 @@ def detect_batched(stack: torch.Tensor, shapes, num_features,
 
     BIG = 1e6
     sel = torch.where(s_hi > 0, s_hi + BIG, s_lo)
-    selp = F.pad(sel, (0, (-W) % cell, 0, (-H) % cell))
-    hc, wc = selp.shape[1] // cell, selp.shape[2] // cell
-    cells = selp.reshape(L, hc, cell, wc, cell).permute(0, 1, 3, 2, 4)
-    cells = cells.reshape(L, hc * wc, cell * cell)
-    cell_best = cells.amax(dim=-1)
-    cell_arg = torch.argmax(cells, dim=-1)  # first maximum, as jnp.argmax
     kmax = max(int(n) for n in num_features)
-    k = min(kmax, cell_best.shape[1])
-    top, cidx = top_k(cell_best, k)
-    off = torch.gather(cell_arg, 1, cidx)
-    cy = torch.div(cidx, wc, rounding_mode="floor")
-    cx = cidx % wc
-    yy = (cy * cell + torch.div(off, cell, rounding_mode="floor")).float()
-    xx = (cx * cell + off % cell).float()
-    xy = torch.stack([xx, yy], -1)
-    valid = top > 0
-    score = torch.where(top > BIG / 2, top - BIG, top)
-    if k < kmax:
-        pad = kmax - k
-        xy = torch.cat([xy, xy.new_zeros((L, pad, 2))], 1)
-        score = torch.cat([score, score.new_zeros((L, pad))], 1)
-        valid = torch.cat([valid, valid.new_zeros((L, pad))], 1)
-    return xy, score, valid
+    xy, top = _select_cells(sel, cell, kmax)
+    return _finish(xy, top, kmax, BIG)

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from ..geometry import lie
 from ..ops import hamming as hamming_ops
 from .fast import top_k
 
@@ -148,3 +149,29 @@ def _unique_target(idx, dist, ok, n_targets: int):
     first_q = torch.full((n_targets,), big, dtype=q.dtype, device=dev)
     first_q.scatter_reduce_(0, idx, qq, reduce="amin")
     return (ok & is_best & (first_q[idx] == q)).reshape(shape)
+
+
+def search_for_initialization(kp0_xy, kp0_desc, kp0_mask, kp1_xy, kp1_desc,
+                              kp1_mask, window: float = 100.0,
+                              max_dist: int = TH_LOW, ratio: float = 0.9):
+    """Wide-window matching between the first two monocular frames: a
+    match must lie within ``window`` px of the keypoint's position."""
+    d2 = ((kp0_xy[:, None, :] - kp1_xy[None, :, :]) ** 2).sum(-1)
+    cand = d2 <= window * window
+    return match_nn_ratio(kp0_desc, kp1_desc, kp0_mask, kp1_mask, max_dist,
+                          ratio, cand_mask=cand)
+
+
+def search_for_triangulation(desc1, mask1, rays1, desc2, mask2, rays2, R12,
+                             t12, epi_thresh: float = 2e-3,
+                             max_dist: int = TH_LOW, ratio: float = 0.85):
+    """Epipolar-gated matching between two keyframes for new points: rays
+    [N, 3] unit-depth bearings, x1 = R12 x2 + t12; a pair passes when ray1
+    lies within ``epi_thresh`` of ray2's epipolar line."""
+    E = lie.hat(t12) @ R12
+    l1 = rays2 @ E.T                                   # [N2, 3]
+    num = (rays1 @ l1.T).abs()                         # [N1, N2]
+    den = torch.sqrt(l1[:, 0] ** 2 + l1[:, 1] ** 2)[None, :] + 1e-12
+    epi_ok = (num / den) < epi_thresh
+    return match_nn_ratio(desc1, desc2, mask1, mask2, max_dist, ratio,
+                          cand_mask=epi_ok)

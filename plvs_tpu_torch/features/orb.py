@@ -94,6 +94,14 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
 
 
+def extract_patches(img: torch.Tensor, xy: torch.Tensor,
+                    patch: int = PATCH) -> torch.Tensor:
+    """Gather [N, patch, patch] windows of one [H, W] image centred at the
+    integer part of xy (edge-padded)."""
+    lvl = torch.zeros(xy.shape[0], dtype=torch.int64, device=xy.device)
+    return extract_patches_stack(img[None], lvl, xy, patch)
+
+
 def extract_patches_stack(stack: torch.Tensor, lvl: torch.Tensor,
                           xy: torch.Tensor, patch: int = PATCH) -> torch.Tensor:
     """Gather [N, patch, patch] windows centred at the integer part of xy
@@ -156,19 +164,46 @@ def features_per_level(num_features: int, n_levels: int, scale: float):
 def extract(img: torch.Tensor, num_features: int = 1024, n_levels: int = 8,
             scale: float = 1.2, threshold_hi: float = 20.0,
             threshold_lo: float = 7.0, cell: int = 16) -> Keypoints:
-    """Multi-scale ORB extraction on a [H, W] float32 image, all levels
-    batched on an edge-padded [L, H, W] stack."""
+    """Multi-scale ORB extraction on a [H, W] float32 image. When every
+    level with a budget shares one uniformity cell, all levels run batched
+    on an edge-padded [L, H, W] stack; otherwise (small images or budgets)
+    each level runs on its own, with its own cell."""
     per = features_per_level(num_features, n_levels, scale)
     shapes = pyr_mod.level_shapes(img.shape[0], img.shape[1], n_levels, scale)
     cells = [max(8, min(cell, int(np.sqrt(h_l * w_l / max(n_l, 1)))))
              for (h_l, w_l), n_l in zip(shapes, per)]
     active = [lv for lv in range(n_levels) if per[lv] > 0]
-    if not active or len({cells[lv] for lv in active}) != 1:
-        raise NotImplementedError(
-            "per-level uniformity cells differ for this image size / budget: "
-            "the JAX package's per-level extraction path is not ported")
-    return _extract_batched(img, per, shapes, n_levels, scale, threshold_hi,
-                            threshold_lo, cells[active[0]])
+    if active and len({cells[lv] for lv in active}) == 1:
+        return _extract_batched(img, per, shapes, n_levels, scale,
+                                threshold_hi, threshold_lo, cells[active[0]])
+    return _extract_per_level(img, per, cells, n_levels, scale, threshold_hi,
+                              threshold_lo)
+
+
+def _extract_per_level(img, per, cells, n_levels, scale, threshold_hi,
+                       threshold_lo):
+    """One level at a time. Unlike the batched path, the IC angle comes
+    from the unblurred patch (the JAX package's per-level path does so)."""
+    levels = pyr_mod.build_pyramid(img, n_levels, scale)
+    xs, rs, angs, octs, descs, masks = [], [], [], [], [], []
+    for lv, (img_l, n_l) in enumerate(zip(levels, per)):
+        if n_l <= 0:
+            continue
+        xy, score, valid = fast_mod.detect(img_l, n_l, threshold_hi,
+                                           threshold_lo, border=HALF + 1,
+                                           cell=cells[lv])
+        ang = ic_angle(extract_patches(img_l, xy))
+        blurred = pyr_mod.gaussian_blur(img_l, sigma=2.0, radius=3)
+        descs.append(descriptors(extract_patches(blurred, xy), ang))
+        xs.append(xy * float(scale ** lv))
+        rs.append(score)
+        angs.append(ang)
+        octs.append(torch.full((xy.shape[0],), lv, dtype=torch.int32,
+                               device=img.device))
+        masks.append(valid)
+    return Keypoints(xy=torch.cat(xs), response=torch.cat(rs),
+                     angle=torch.cat(angs), octave=torch.cat(octs),
+                     desc=torch.cat(descs), mask=torch.cat(masks))
 
 
 def _extract_batched(img, per, shapes, n_levels, scale, threshold_hi,

@@ -107,6 +107,13 @@ def _blur_axis(x: torch.Tensor, k, axis: int, radius: int) -> torch.Tensor:
     return acc
 
 
+def gaussian_blur(img: torch.Tensor, sigma: float = 2.0,
+                  radius: int = 3) -> torch.Tensor:
+    """Separable Gaussian blur on one [H, W] image (reflect padding)."""
+    k = [float(v) for v in gaussian_kernel1d(sigma, radius)]
+    return _blur_axis(_blur_axis(img, k, 0, radius), k, 1, radius)
+
+
 def gaussian_blur_batched(stack: torch.Tensor, sigma: float = 2.0,
                           radius: int = 3) -> torch.Tensor:
     """Separable Gaussian blur on an [L, H, W] stack (reflect padding)."""

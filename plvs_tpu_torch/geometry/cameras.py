@@ -65,6 +65,15 @@ def kannala_brandt8(fx, fy, cx, cy, k1, k2, k3, k4, width=640, height=480,
     return Camera(KANNALA_BRANDT8, p, int(width), int(height), float(bf))
 
 
+def scale_camera(cam: Camera, s: float) -> Camera:
+    """The camera of images resized by ``s``: fx, fy, cx, cy and bf scale,
+    distortion coefficients do not."""
+    fx, fy, cx, cy, *rest = cam.params
+    p = (fx * s, fy * s, cx * s, cy * s, *rest)
+    return Camera(cam.kind, p, int(round(cam.width * s)),
+                  int(round(cam.height * s)), cam.bf * s)
+
+
 def _nz(x, eps=1e-9):
     """x with |x| < eps replaced by eps (the reference's safe divisor)."""
     return torch.where(x.abs() < eps, torch.full_like(x, eps), x)

@@ -25,9 +25,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.autograd.forward_ad as fwAD
 
 from ..geometry import lie
+from ..solvers.autodiff import jacobian
 from . import preintegration as pre
 
 
@@ -149,10 +149,7 @@ def inertial_only_optimize(R_wb: torch.Tensor, p_wb: torch.Tensor,
 
     def gn_step(theta):
         r = residuals(theta[None])[0]
-        with fwAD.dual_level():
-            out = residuals(fwAD.make_dual(theta.expand(n, n).contiguous(),
-                                           eye_n))
-            J = fwAD.unpack_dual(out).tangent.T                 # [R, n]
+        J = jacobian(residuals, theta)                          # [R, n]
         H = J.T @ J + 1e-6 * eye_n
         dx = torch.linalg.solve_ex(H, J.T @ r)[0]   # no error check, no sync
         return theta - dx

@@ -1,14 +1,13 @@
 """Per-frame construction: feature extraction + depth association.
 
-Counterpart of the RGB-D and stereo parts of plvs_tpu/slam/frame.py
-(``Frame``, ``FrameLines``, ``build_frame_rgbd``, ``build_frame_lines``,
-``build_frame_stereo``, ``build_frame_stereo_rig``,
-``build_frame_lines_stereo``, ``project_points``); the monocular frame
-waits for ROADMAP.md queue 1 item 7. Stereo images are float32 as given
-(not quantized), as in JAX. The depth image of
-an RGB-D frame may arrive decimated (the quantized
-upload of ``System.track_rgbd`` keeps it at 1/dec resolution); consumers
-nearest-sample it by scaling the gather indices, as the JAX package does.
+Counterpart of plvs_tpu/slam/frame.py
+(``Frame``, ``FrameLines``, ``build_frame_rgbd``, ``build_frame_mono``,
+``build_frame_lines``, ``build_frame_stereo``, ``build_frame_stereo_rig``,
+``build_frame_lines_stereo``, ``project_points``). Stereo images are
+float32 as given (not quantized), as in JAX. The depth image of an RGB-D
+frame may arrive decimated (the quantized upload of ``System.track_rgbd``
+keeps it at 1/dec resolution); consumers nearest-sample it by scaling the
+gather indices, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -66,6 +65,19 @@ def build_frame_rgbd(gray: torch.Tensor, depth_img: torch.Tensor,
     dz = torch.where(has_depth, d, 0.0)
     xyz = cam_mod.backproject(cam, kp.xy, dz)
     return Frame(kp, uvr, dz, orb.inv_scale_sigma2(kp.octave, scale), xyz)
+
+
+def build_frame_mono(gray: torch.Tensor, cam: cam_mod.Camera,
+                     num_features: int = 1024, n_levels: int = 8,
+                     scale: float = 1.2) -> Frame:
+    """Monocular frame: features only, uR = -1 and zero depth."""
+    kp = orb.extract(gray, num_features, n_levels, scale)
+    n = kp.xy.shape[0]
+    uvr = torch.cat([kp.xy, -torch.ones((n, 1), dtype=kp.xy.dtype,
+                                         device=kp.xy.device)], -1)
+    z = torch.zeros((n,), dtype=gray.dtype, device=gray.device)
+    return Frame(kp, uvr, z, orb.inv_scale_sigma2(kp.octave, scale),
+                 torch.zeros((n, 3), dtype=gray.dtype, device=gray.device))
 
 
 def build_frame_lines(gray: torch.Tensor, depth_img: torch.Tensor,

@@ -7,7 +7,11 @@ LocalMapping::InitializeIMU and LocalInertialBA). The host queues raw
 samples; each frame gap and each keyframe gap is preintegrated on the
 runtime's device; the initialization is the inertial-only Gauss-Newton
 solve over the keyframe chain; once initialized, each keyframe's temporal
-window is refined by the VI bundle adjustment.
+window is refined by the VI bundle adjustment. On a monocular map
+(``fix_scale=False``) the initialization also estimates the metric scale
+and multiplies the whole map by it (``MapStore.rescale_map``); the factor
+waits in ``consume_scale_correction`` for the System, which mirrors it
+onto the tracker and the trajectories.
 
 One difference from the JAX package, deliberate: the one-entry cache of a
 frame gap's bias-corrected deltas is keyed on the preintegration object
@@ -69,17 +73,12 @@ class InertialRuntime:
     prior_pos_floor: float = 0.005  # m
     prior_rot_floor: float = 0.002  # rad
     per_frame_prior: bool = True
-    # stereo / RGB-D maps are metric; a monocular map's scale is estimated
-    # and the map rescaled (ROADMAP.md queue 1 item 7)
+    # stereo / RGB-D maps are metric; a monocular map's scale is a free
+    # variable of the initialization, and the whole map is rescaled
     fix_scale: bool = True
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
-        if not self.fix_scale:
-            raise NotImplementedError(
-                "InertialRuntime(fix_scale=False): the monocular map rescale "
-                "(MapStore.rescale_map) is ROADMAP.md queue 1 item 7 (mono "
-                "and the rest)")
         self.device = resolve_device(self.device)
         self.samples: list[tuple[float, np.ndarray, np.ndarray]] = []
         self.kf_preint: dict[int, pre.Preintegrated] = {}  # since prev KF
@@ -97,6 +96,14 @@ class InertialRuntime:
         self._deltas_cache: tuple | None = None
         # one dict per VI BA solve (cost0, cost, lm_iters, cg_iters, K)
         self.vi_ba_log: list[dict] = []
+        # scale the last (re-)initialization multiplied the map by, for the
+        # System to mirror onto the tracker and the trajectories
+        self._pending_scale: float | None = None
+
+    def consume_scale_correction(self) -> float | None:
+        """The scale factor the map was just multiplied by (None if none)."""
+        s, self._pending_scale = self._pending_scale, None
+        return s
 
     # the biases: every write starts a new generation of the deltas cache
     @property
@@ -320,10 +327,20 @@ class InertialRuntime:
         out = imu_init.inertial_only_optimize_padded(
             np.stack(R_wb), np.stack(p_wb),
             [self.kf_preint[b] for _, b in pairs], fix_scale=self.fix_scale)
-        g, bg, ba, vel = _read_flat((out.gravity, out.bias_gyro,
-                                     out.bias_acc, out.velocities))
+        g, bg, ba, vel, scale = _read_flat((out.gravity, out.bias_gyro,
+                                            out.bias_acc, out.velocities,
+                                            out.scale))
         if not np.isfinite(g).all():
             return False
+        if not self.fix_scale:
+            # a monocular map: apply the estimated metric scale to all of it
+            # (re-initializations refine it toward 1)
+            s = float(scale)
+            if not np.isfinite(s) or not (0.05 < s < 20.0):
+                return False
+            if abs(s - 1.0) > 1e-3:
+                store.rescale_map(s)
+                self._pending_scale = (self._pending_scale or 1.0) * s
         self.gravity = g
         self.bias_gyro = bg
         self.bias_acc = ba

@@ -18,10 +18,9 @@ Differences from the JAX package, all deliberate:
   to shape buckets: PyTorch compiles nothing per shape. What the buckets
   meant beyond padding is kept: under ``fixed_shapes`` the line block of
   the local BA is present even for fewer than 4 lines;
-* the mono map growth (``create_new_points`` and its
-  ``triangulate_new_points`` switch, ROADMAP.md queue 1 item 7) and the
-  sharded global BA (``mesh``, item 8) are not ported yet, and
-  ``warm_ba_buckets`` has no counterpart (it precompiles XLA shapes);
+* the sharded global BA (``mesh``, ROADMAP.md queue 1 item 8) is not
+  ported yet, and ``warm_ba_buckets`` has no counterpart (it precompiles
+  XLA shapes);
 * a deferred write-back (the interleaved backend applies a solve frames
   after its dispatch) skips landmark slots that were culled and reused in
   between: the JAX package checks keyframe slots by identity but points
@@ -140,6 +139,9 @@ class LocalMapper:
     # inertial_max_gap seconds, and the runtime re-chains across it
     inertial: object | None = None
     inertial_max_gap: float = 3.0
+    # monocular maps grow by triangulation against covisible neighbours
+    # (create_new_points); depth maps grow from depth at keyframe creation
+    triangulate_new_points: bool = False
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
@@ -148,6 +150,8 @@ class LocalMapper:
         # back at its write-back, and its cameras (window + fixed observers)
         self.ba_log: list[dict] = []
         self.n_culled = 0
+        # points added by each create_new_points call
+        self.new_points_log: list[int] = []
 
     def _scope(self, name: str):
         if self.stopwatch is None:
@@ -174,7 +178,8 @@ class LocalMapper:
     def process_keyframe_stages(self, kf_id: int, extra_fetch=None,
                                 submit=None):
         """The per-keyframe backend pass as a generator, in the JAX
-        package's order: cull points and lines; dispatch the line
+        package's order: cull points and lines; on a monocular map
+        triangulate new points (:meth:`create_new_points`); dispatch the line
         triangulation and the fuse matches from the store as it stands and
         yield their fetch (with ``extra_fetch``, an unrelated device output
         such as the keyframe's BoW words, fetched in the same future);
@@ -191,6 +196,9 @@ class LocalMapper:
             self.cull_points(kf_id)
             if self.use_lines:
                 self.cull_lines(kf_id)
+        if self.triangulate_new_points:
+            with self._scope("lm.tri_pts"), lock:
+                self.new_points_log.append(self.create_new_points(kf_id))
         with lock:
             tri_ctx = (self._dispatch_new_lines(kf_id)
                        if self.use_lines else None)
@@ -305,6 +313,82 @@ class LocalMapper:
         ctx = self._dispatch_new_lines(kf_id, max_neighbors, reproj_thresh)
         if ctx is not None:
             self._apply_new_lines(kf_id, ctx, to_host(ctx["out"]))
+
+    # ------------------------------------------------------------------
+    def create_new_points(self, kf_id: int, max_neighbors: int = 5) -> int:
+        """Triangulate new points between the keyframe and its (at most 5)
+        covisible neighbours, in the JAX package's order: per neighbour the
+        baseline check, the epipolar-gated matches of the keypoints without
+        a point (K1), two-ray triangulation, then one read of the gates'
+        inputs and the gates — reprojection under 5.991 px^2 in both views,
+        depth over 0.05 in both, parallax cosine under 0.9998. Returns the
+        number of points added."""
+        st = self.store
+        covis, _ = st.covisibility(kf_id, min_weight=10)
+        if len(covis) == 0:
+            return 0
+        m1 = st.kf_kp_mask[kf_id] & (st.kf_kp_pt[kf_id] < 0)
+        if m1.sum() < 10:
+            return 0
+        rays1_full = cam_mod.unproject(self.cam, self._t(st.kf_kp_xy[kf_id]))
+        desc1 = self._t(st.kf_kp_desc[kf_id])
+        R1, t1 = st.kf_R[kf_id], st.kf_t[kf_id]
+        n_added = 0
+        for nb in covis[:max_neighbors]:
+            nb = int(nb)
+            C1 = -R1.T @ t1
+            C2 = -st.kf_R[nb].T @ st.kf_t[nb]
+            if np.linalg.norm(C1 - C2) < 1e-3:
+                continue
+            m2 = st.kf_kp_mask[nb] & (st.kf_kp_pt[nb] < 0)
+            rays2_full = cam_mod.unproject(self.cam, self._t(st.kf_kp_xy[nb]))
+            R12 = R1 @ st.kf_R[nb].T                 # x1 = R12 x2 + t12
+            t12 = t1 - R12 @ st.kf_t[nb]
+            idx, _ = matching.search_for_triangulation(
+                desc1, self._t(m1), rays1_full, self._t(st.kf_kp_desc[nb]),
+                self._t(m2), rays2_full, self._t(R12), self._t(t12),
+                epi_thresh=2.0 / float(self.cam.fx))
+            idx = idx.cpu().numpy()
+            sel = np.nonzero(idx >= 0)[0]
+            if len(sel) == 0:
+                continue
+            n = len(sel)
+            ra = rays1_full[self._t(sel)]
+            rb = rays2_full[self._t(idx[sel])]
+
+            def rep(a):
+                a = self._t(a)
+                return a.expand((n,) + tuple(a.shape))
+
+            Xw, valid = triangulation.triangulate_points_world(
+                rep(R1), rep(t1), rep(st.kf_R[nb]), rep(st.kf_t[nb]), ra, rb)
+            cosp = triangulation.parallax_cos(ra, rb, rep(R12))
+            Xc1 = Xw @ self._t(R1).T + self._t(t1)
+            Xc2 = Xw @ self._t(st.kf_R[nb]).T + self._t(st.kf_t[nb])
+            uv1, uv2, valid, cosp, z1, z2, Xw = to_host(
+                (cam_mod.project(self.cam, Xc1), cam_mod.project(self.cam, Xc2),
+                 valid, cosp, Xc1[:, 2], Xc2[:, 2], Xw))
+            e1 = np.sum((uv1 - st.kf_kp_xy[kf_id][sel]) ** 2, -1)
+            e2 = np.sum((uv2 - st.kf_kp_xy[nb][idx[sel]]) ** 2, -1)
+            ok = (valid & (cosp < 0.9998) & (z1 > 0.05) & (z2 > 0.05)
+                  & (e1 < 5.991) & (e2 < 5.991))
+            good = np.nonzero(ok)[0]
+            if len(good) == 0:
+                continue
+            pt_ids = st.alloc_pts(len(good))
+            st.version += 1
+            st.pt_xyz[pt_ids] = Xw[good]
+            st.pt_desc[pt_ids] = st.kf_kp_desc[kf_id][sel[good]]
+            st.pt_mask[pt_ids] = True
+            st.pt_ref_kf[pt_ids] = kf_id
+            st.pt_first_kf[pt_ids] = kf_id
+            st.pt_visible[pt_ids] = 1
+            st.pt_found[pt_ids] = 1
+            st.add_observations(kf_id, pt_ids, sel[good])
+            st.add_observations(nb, pt_ids, idx[sel[good]])
+            m1 = st.kf_kp_mask[kf_id] & (st.kf_kp_pt[kf_id] < 0)
+            n_added += len(good)
+        return n_added
 
     # ------------------------------------------------------------------
     def _dispatch_fuse(self, kf_id: int, max_neighbors: int = 5):

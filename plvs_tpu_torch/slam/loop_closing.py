@@ -17,9 +17,10 @@ The RANSAC draws from a ``torch.Generator`` seeded 0 on the closer's device
 (the JAX package's ``PRNGKey(0)``, whose stream PyTorch cannot
 reproduce). Once ``gravity_w`` is set (the System sets it when the IMU
 is initialized) the correction is the 4-DoF essential graph: each vertex
-turns only about its camera-frame gravity axis. Map objects
-(``object_store``) and the sharded pose graph (``mesh``) are not ported;
-setting one raises, naming its ROADMAP.md item.
+turns only about its camera-frame gravity axis. The map objects of
+``object_store`` move with their best-observing keyframe (the latest one
+in the corrected map). The sharded pose graph (``mesh``) is not ported;
+setting it raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ from .map_store import MapStore, spanning_tree
 
 # settings outside the ported slice -> ROADMAP.md item
 _NOT_IN_SLICE = {
-    "object_store": "queue 1 item 7, map objects",
     "mesh": "queue 1 item 8, multi-device (the sharded pose graph)",
 }
 
@@ -541,6 +541,8 @@ class LoopCloser:
                                          Xc2 - tn[lref_loc])
             st.kf_R[live] = Rn
             st.kf_t[live] = tn
+            if self.object_store is not None:
+                self._move_objects(loc, R_before, t_before, Rn, tn)
             n_lines_fused = self._fuse_loop_lines(kf_id, cand)
             n_fused = 0
             for p_src, p_dst in fuse_pairs or ():
@@ -551,6 +553,21 @@ class LoopCloser:
                 "n_fused": n_fused, "n_lines_fused": n_lines_fused,
                 "lm_iters": int(info["lm_iters"]),
                 "cg_iters": int(info["cg_iters"])}
+
+    def _move_objects(self, loc, R_before, t_before, Rn, tn):
+        """Each detected object follows its latest observing keyframe of the
+        corrected map: T_wo' = T_new^-1 T_old T_wo."""
+        for rec in self.object_store.objects:
+            if not rec.detected or not rec.obs:
+                continue
+            anchor = max((k for k in rec.obs if k in loc), default=None)
+            if anchor is None:
+                continue
+            i = loc[anchor]
+            R_rel = Rn[i].T @ R_before[i]
+            t_rel = Rn[i].T @ (t_before[i] - tn[i])
+            rec.R_wo = (R_rel @ rec.R_wo).astype(np.float32)
+            rec.t_wo = (R_rel @ rec.t_wo + t_rel).astype(np.float32)
 
     # ------------------------------------------------------------------
     def _fuse_loop_lines(self, kf_id: int, cand: int,

@@ -604,6 +604,26 @@ class MapStore:
                            self.obs_mask[:top], self.max_kf, self.max_pts,
                            min_weight=min_weight)
 
+    def rescale_map(self, s: float, map_id: int | None = None):
+        """Multiply one map's metric scale by ``s``: keyframe translations,
+        points (and their scale range) and line endpoints; rotations are
+        scale-free (the monocular-inertial initialization's rescale)."""
+        with self.lock:
+            if map_id is None:
+                map_id = self.active_map
+            kfs = self.kfs_of_map(map_id)
+            self.kf_t[kfs] = (self.kf_t[kfs] * s).astype(np.float32)
+            pts = np.nonzero(self.pt_mask)[0]
+            pts = pts[self.kf_map[self.pt_ref_kf[pts]] == map_id]
+            self.pt_xyz[pts] = (self.pt_xyz[pts] * s).astype(np.float32)
+            self.pt_min_dist[pts] *= s
+            self.pt_max_dist[pts] *= s
+            lns = np.nonzero(self.ln_mask)[0]
+            lns = lns[self.kf_map[self.ln_ref_kf[lns]] == map_id]
+            self.ln_Xs[lns] = (self.ln_Xs[lns] * s).astype(np.float32)
+            self.ln_Xe[lns] = (self.ln_Xe[lns] * s).astype(np.float32)
+            self.version += 1
+
     def points_in_kfs(self, kf_ids: np.ndarray) -> np.ndarray:
         okf, opt, _ = self.live_obs()
         return np.unique(opt[np.isin(okf, kf_ids)])

@@ -1,18 +1,20 @@
-"""System facade for RGB-D and stereo SLAM with points and lines, loop
-closing, relocalization, dense TSDF mapping (with ``dense_segmentation``
-the incremental 3D segmentation) and, with ``use_imu``, the inertial path.
-A stereo pair is rectified (row-aligned), or a calibrated non-rectified
-rig (``cam2`` / ``T_c1_c2``, e.g. a KB8 fisheye pair) matched across its
-epipolar geometry, or — with ``rectify`` — warped to a common rectified
-pinhole pair first.
+"""System facade for RGB-D, stereo and monocular SLAM with points and
+lines, loop closing, relocalization, dense TSDF mapping (with
+``dense_segmentation`` the incremental 3D segmentation), planar map objects
+and, with ``use_imu``, the inertial path. A stereo pair is rectified
+(row-aligned), or a calibrated non-rectified rig (``cam2`` / ``T_c1_c2``,
+e.g. a KB8 fisheye pair) matched across its epipolar geometry, or — with
+``rectify`` — warped to a common rectified pinhole pair first. With
+``image_scale`` != 1 every input image is resized to the working
+resolution first (gray linear, depth nearest, as the JAX package does) and
+the camera scaled with it.
 
-Counterpart of plvs_tpu/slam/system.py for the ported slices:
-``SystemConfig`` keeps every field and default of the JAX package, and the
-settings whose machinery is not ported yet raise ``NotImplementedError``
-naming the ROADMAP.md item that ports them — none of them gets a stand-in.
-New map points and line landmarks come from depth at every keyframe. The
-keyframe database (place recognition) is always built: relocalization
-needs it.
+Counterpart of plvs_tpu/slam/system.py: ``SystemConfig`` keeps every field
+and default of the JAX package; ``sharded_backend`` raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it. Depth
+maps grow from depth at every keyframe; a monocular map starts from two
+views and grows by triangulation in the local mapper. The keyframe
+database (place recognition) is always built: relocalization needs it.
 
 The per-keyframe backend is ``_backend_stages``, a generator: with
 ``local_ba`` the local mapper (culling, line triangulation, fuse, landmark
@@ -68,6 +70,7 @@ import numpy as np
 import torch
 
 from ..dense.mapping import DenseMapper
+from ..features import pyramid
 from ..geometry import cameras as cam_mod
 from ..geometry import lie
 from ..geometry.rectify import StereoRectifier
@@ -81,6 +84,7 @@ from .inertial import InertialRuntime
 from .keyframe_database import KeyFrameDatabase
 from .local_mapping import LocalMapper
 from .loop_closing import LoopCloser
+from .map_objects import ObjectStore, ObjectTemplate
 from .map_store import MapStore
 from .tracking import OK, Tracker
 
@@ -147,14 +151,13 @@ class SystemConfig:
 # settings outside this slice -> (value that is in the slice, ROADMAP item)
 _NOT_IN_SLICE = {
     "sharded_backend": (False, "queue 1 item 8, multi-device"),
-    "image_scale": (1.0, "queue 1 item 7, mono and the rest"),
 }
 
 
 class System:
-    """RGB-D / stereo SLAM on one device (optional keyframe backend, loop
-    closing, dense mapping, deferred resolution and the interleaved or
-    threaded backend)."""
+    """RGB-D / stereo / monocular SLAM on one device (optional keyframe
+    backend, loop closing, dense mapping, map objects, deferred resolution
+    and the interleaved or threaded backend)."""
 
     # interleaved backend: queued keyframe generators beyond this force
     # catch-up steps (see _enqueue_backend)
@@ -181,11 +184,13 @@ class System:
                 raise NotImplementedError(
                     f"SystemConfig.{name}={getattr(c, name)!r} is not in the "
                     f"ported slice; ROADMAP.md {item} ports it")
-        if c.sensor not in ("rgbd", "stereo"):
-            raise NotImplementedError(
-                f"SystemConfig.sensor={c.sensor!r}: RGB-D and stereo are "
-                "ported; mono is ROADMAP.md queue 1 item 7")
+        if c.sensor not in ("rgbd", "stereo", "mono"):
+            raise ValueError(f"unknown sensor {c.sensor!r}")
         self.device = resolve_device(device)
+        if c.image_scale != 1.0:
+            cam = cam_mod.scale_camera(cam, c.image_scale)
+            if cam2 is not None:
+                cam2 = cam_mod.scale_camera(cam2, c.image_scale)
         self.rectifier = None
         if c.rectify and cam2 is not None and T_c1_c2 is not None:
             self.rectifier = StereoRectifier(
@@ -243,7 +248,10 @@ class System:
         self.local_mapper = LocalMapper(
             cam, self.store, scale=c.scale, n_levels=c.n_levels,
             use_lines=c.use_lines, kfdb=self.kfdb,
+            triangulate_new_points=(c.sensor == "mono"),
             fixed_shapes=c.backend_fixed_shapes, device=self.device)
+        # the loop closer keeps fix_scale=True on a monocular map too, as
+        # the JAX package's System constructs it
         self.loop_closer = (LoopCloser(self.store, kfdb=self.kfdb, cam=cam,
                                        device=self.device)
                             if c.loop_closing else None)
@@ -280,9 +288,15 @@ class System:
                 R_bc, t_bc = T[:3, :3], T[:3, 3]
                 kwargs["R_cb"] = np.ascontiguousarray(R_bc.T)
                 kwargs["t_cb"] = (-R_bc.T @ t_bc).astype(np.float32)
-            self.inertial = InertialRuntime(device=self.device, **kwargs)
+            # a monocular map is born up to scale: the inertial
+            # initialization estimates the metric scale and rescales it
+            self.inertial = InertialRuntime(fix_scale=c.sensor != "mono",
+                                            device=self.device, **kwargs)
             # keyframe culling goes through the inertial re-chaining gate
             self.local_mapper.inertial = self.inertial
+        # planar map objects (add_map_object): detected at each keyframe,
+        # refined in the backend, moved by loop corrections
+        self.object_store = None
         self.actor = None
         if c.async_mapping:
             from .async_runtime import MapperActor
@@ -305,6 +319,37 @@ class System:
         self.flush()
         return self.stopwatch.stats()
 
+    # -- image scaling ----------------------------------------------------
+    def _gray_to_device(self, img: np.ndarray) -> torch.Tensor:
+        """A gray image on the device as float32, resized to the working
+        resolution when ``image_scale`` != 1 (JAX's linear antialiased
+        resampler, ``pyramid.resize_linear``)."""
+        g = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(
+            self.device)
+        if self.config.image_scale == 1.0:
+            return g
+        return pyramid.resize_linear(g, (self.cam.height, self.cam.width))
+
+    def _maybe_scale(self, img: np.ndarray, nearest: bool = False):
+        """A host image resized to the working resolution: gray through
+        :meth:`_gray_to_device` (read back), depth with
+        ``jax.image.resize``'s "nearest" rule — source index
+        floor((i + 0.5) * in / out), evaluated in float32."""
+        if self.config.image_scale == 1.0:
+            return img
+        if not nearest:
+            return self._gray_to_device(img).cpu().numpy()
+        out = np.asarray(img)
+        f32 = np.float32
+        for axis, n in ((0, self.cam.height), (1, self.cam.width)):
+            m = out.shape[axis]
+            if m == n:
+                continue
+            src = np.floor((np.arange(n, dtype=f32) + f32(0.5)) * f32(m)
+                           / f32(n)).astype(np.int64)
+            out = np.take(out, src, axis=axis)
+        return out
+
     def _build_frames(self, gray: np.ndarray, depth: np.ndarray):
         """Full-resolution quantized upload + separate frame build (the
         initialization / fallback path)."""
@@ -325,6 +370,8 @@ class System:
         """Track one RGB-D frame (gray [H, W], depth [H, W] metres; with
         ``use_imu``, ``imu_samples`` [(t, gyro[3], acc[3])] up to the
         frame); returns (state, Rcw, tcw)."""
+        gray = self._maybe_scale(gray)
+        depth = self._maybe_scale(depth, nearest=True)
         self._imu_pre_frame(timestamp, imu_samples)
         if self.actor is not None:
             self.actor.apply_pending_correction()
@@ -354,10 +401,8 @@ class System:
         if self.rectifier is not None:
             gl, gr = self.rectifier(gray_l, gray_r)
         else:
-            gl = torch.from_numpy(np.asarray(gray_l, np.float32)).to(
-                self.device)
-            gr = torch.from_numpy(np.asarray(gray_r, np.float32)).to(
-                self.device)
+            gl = self._gray_to_device(gray_l)
+            gr = self._gray_to_device(gray_r)
         self._imu_pre_frame(timestamp, imu_samples)
         if self.actor is not None:
             self.actor.apply_pending_correction()
@@ -379,6 +424,47 @@ class System:
             res = self.tracker.process_frame(fr, timestamp, fl)
         payload = ("stereo", gl, gr) if self.dense_mapper else None
         return self._finish_frame(res, timestamp, payload)
+
+    def track_monocular(self, gray: np.ndarray, timestamp: float,
+                        imu_samples=None):
+        """Track one monocular frame (gray [H, W]; ``imu_samples`` as for
+        ``track_rgbd``: monocular-inertial); returns (state, Rcw, tcw). The
+        map and the trajectory are up to scale until an inertial
+        initialization resolves it."""
+        g = self._gray_to_device(gray)
+        self._imu_pre_frame(timestamp, imu_samples)
+        if self.actor is not None:
+            self.actor.apply_pending_correction()
+        self._resolve_pipeline()
+        c = self.config
+        with self.stopwatch.scope("frame_build"):
+            fr = frame_mod.build_frame_mono(g, self.cam, c.num_features,
+                                            c.n_levels, c.scale)
+        with self.stopwatch.scope("track"):
+            res = self.tracker.process_frame(fr, timestamp)
+        return self._finish_frame(res, timestamp)
+
+    # -- planar map objects ------------------------------------------------
+    def add_map_object(self, gray: np.ndarray, metric_width: float) -> int:
+        """Register a planar object from its reference image (spanning
+        ``metric_width`` in x): detected at every new keyframe, its Sim3
+        pose refined against its observations."""
+        if self.object_store is None:
+            self.object_store = ObjectStore(self.cam, device=self.device)
+            if self.loop_closer is not None:
+                self.loop_closer.object_store = self.object_store
+        tpl = ObjectTemplate.from_image(
+            np.asarray(gray, np.float32), metric_width,
+            object_id=len(self.object_store.objects), device=self.device)
+        return self.object_store.add_template(tpl)
+
+    def _detect_objects(self, kf_id: int):
+        st = self.store
+        with self.stopwatch.scope("map_objects.detect"):
+            self.object_store.detect_in_frame(
+                st.kf_kp_xy[kf_id], st.kf_kp_desc[kf_id],
+                st.kf_kp_mask[kf_id], st.kf_R[kf_id], st.kf_t[kf_id],
+                kf_id=kf_id)
 
     # -- the inertial path -------------------------------------------------
     def _imu_pre_frame(self, timestamp: float, imu_samples):
@@ -425,6 +511,17 @@ class System:
         self.inertial.on_keyframe(kf_id, self._last_kf_ts, timestamp,
                                   self.store)
         self._last_kf_ts = timestamp
+        s = self.inertial.consume_scale_correction()
+        if s is not None:
+            # the monocular-inertial initialization rescaled the map: the
+            # tracker state and the recorded trajectories follow
+            tr = self.tracker
+            tr.t = (tr.t * s).astype(np.float32)
+            tr.vel_t = (tr.vel_t * s).astype(np.float32)
+            self.trajectory = [(ts, R, (t * s).astype(np.float32))
+                               for ts, R, t in self.trajectory]
+            self._traj_rel = [(ts, uid, R, (t * s).astype(np.float32))
+                              for ts, uid, R, t in self._traj_rel]
         if self.inertial.initialized:
             self.inertial.vi_local_ba(self.cam, self.store, kf_id)
             self.tracker.imu_coast = True
@@ -504,6 +601,8 @@ class System:
                 self._traj_rel.append((timestamp, -1, res.R.copy(),
                                        res.t.copy()))
         if res.is_keyframe and res.kf_id >= 0:
+            if self.object_store is not None:
+                self._detect_objects(res.kf_id)
             if self.actor is not None:
                 self.actor.insert_keyframe(res.kf_id, dense_payload)
                 self._imu_post_kf(res.kf_id, timestamp)
@@ -563,6 +662,9 @@ class System:
                 yield wait
         elif words_out is not None:
             words = to_host(words_out)
+        if self.object_store is not None:
+            with self.stopwatch.scope("map_objects"):
+                self.object_store.refine(st)
         if self.dense_mapper is not None and dense_payload is not None:
             kind, a, b = dense_payload
             d_gen = self.dense_mapper.insert_stages(

@@ -1,8 +1,8 @@
 """Tracking front end: motion-model / local-map tracking + keyframe policy.
 
-Counterpart of plvs_tpu/slam/tracking.py for synchronous RGB-D and
-rectified-stereo tracking (a stereo frame carries per-keypoint depth like an
-RGB-D one and goes through ``process_frame``, as in JAX).
+Counterpart of plvs_tpu/slam/tracking.py for RGB-D, stereo and monocular
+tracking (a stereo frame carries per-keypoint depth like an RGB-D one, a
+monocular frame none; all go through ``process_frame``, as in JAX).
 The device program (guided matching + pose optimization) runs as torch ops
 on the tracker's device; the state machine and map bookkeeping stay on the
 host in numpy, as in the JAX package.
@@ -26,9 +26,15 @@ keyframe database (BoW candidates of the active map, descriptor matches
 through K1, a 3D-3D RANSAC on the frame's depth, then a local-map match of
 the candidate's window), and ``new_map_after_lost`` lost frames on a mature
 map start a new map of the atlas. The relocalization RANSAC draws from a
-``torch.Generator`` seeded 7 (the JAX package's ``PRNGKey(7)``). The
-monocular branch of relocalization (PnP) and the monocular initializer are
-not in the ported slices.
+``torch.Generator`` seeded 7 (the JAX package's ``PRNGKey(7)``). A
+monocular frame has no depth: its relocalization takes the PnP branch
+(``solvers/pnp.py`` on the bearings of the matched keypoints, counted in
+``n_pnp_calls``), and a monocular map starts from two views
+(``_initialize_mono``: a reference frame, wide-window matches, the
+``solvers/two_view.py`` reconstruction scaled to median depth 1, two
+keyframes). The two-view samples come from a second generator,
+``_init_gen`` (the JAX package draws both from one key: its stream cannot
+be replayed here anyway).
 
 The inertial runtime (``slam/inertial.py``) drives two fields, as in the
 JAX package: ``prior_info``, the information of an SE3 prior at the
@@ -66,7 +72,7 @@ from ..features import matching
 from ..geometry import cameras as cam_mod
 from ..geometry import lie
 from ..ops import resolve_device
-from ..solvers import pose_opt, sim3_solver
+from ..solvers import pnp, pose_opt, sim3_solver, two_view
 from ..utils.fetch import HelperFetch
 from ..utils.fetch import to_host as fetch_to_host
 from . import frame as frame_mod
@@ -387,7 +393,7 @@ class TrackResult:
 
 
 class Tracker:
-    """Host-side tracking state machine (synchronous RGB-D / stereo)."""
+    """Host-side tracking state machine (RGB-D, stereo or monocular)."""
 
     def __init__(self, cam: cam_mod.Camera, store: MapStore,
                  num_features: int = 1024, local_pts_cap: int = 4096,
@@ -399,10 +405,8 @@ class Tracker:
                  min_init_pts: int = 300, line_track_weight: float = 2.0,
                  kfdb=None, new_map_after_lost: int = 150,
                  device: str | torch.device = "cuda"):
-        if sensor not in ("rgbd", "stereo"):
-            raise NotImplementedError(
-                f"sensor={sensor!r}: RGB-D and rectified stereo tracking are "
-                "ported; mono is ROADMAP.md queue 1 item 7")
+        if sensor not in ("rgbd", "stereo", "mono"):
+            raise ValueError(f"unknown sensor {sensor!r}")
         self.device = resolve_device(device)
         self.cam = cam
         self.store = store
@@ -433,7 +437,13 @@ class Tracker:
         self.max_keylines = 128
         self.depth_decimation = 1
         self.kfdb = kfdb  # KeyFrameDatabase, for relocalization
+        self.sensor = sensor
+        # RANSAC samples: relocalization's (the JAX package's PRNGKey(7))
+        # and the monocular initializer's two-view
         self._reloc_gen = torch.Generator(device=self.device).manual_seed(7)
+        self._init_gen = torch.Generator(device=self.device).manual_seed(7)
+        self._init_frame = None  # monocular initializer reference frame
+        self.n_pnp_calls = 0     # relocalization PnP RANSACs run
         self.max_depth = max_depth_factor * (cam.bf / float(cam.params[0]))
         self.line_max_depth = max(20.0, 2.0 * self.max_depth)
         self.state = NO_IMAGES_YET
@@ -488,7 +498,9 @@ class Tracker:
             # them first
             self.resolve_batch(force=True)
         if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
-            res = self._initialize_depth(fr, timestamp, fl)
+            res = (self._initialize_mono(fr, timestamp)
+                   if self.sensor == "mono"
+                   else self._initialize_depth(fr, timestamp, fl))
         elif self.state == RECENTLY_LOST:
             res = self._relocalize(fr, timestamp)
             if res.state != OK:
@@ -537,6 +549,7 @@ class Tracker:
         self.ref_kf_npts = 0
         self.frames_since_kf = 0
         self.lost_frames = 0
+        self._init_frame = None
         self.last_kp_pt_id = None
 
     def reset_state(self):
@@ -556,9 +569,10 @@ class Tracker:
         """Recover a lost frame against the keyframe database: candidates
         of the active map, descriptor matches to each (K1), a 3D-3D SE3
         RANSAC from the frame's back-projected keypoints to the matched
-        landmarks, then a local-map match of the candidate's window from
-        that pose; the first candidate with 30 inliers wins. Runs under
-        the store's lock."""
+        landmarks (15 matches with depth, 15 inliers) or, without depth, a
+        PnP RANSAC on their bearings (12 and 12), then a local-map match
+        of the candidate's window from that pose; the first candidate with
+        30 inliers wins. Runs under the store's lock."""
         with self.store.lock:
             return self._relocalize_locked(fr, timestamp)
 
@@ -578,26 +592,37 @@ class Tracker:
                 fr.kp.mask, self._t(m_kf), max_dist=64, ratio=0.85)
             idx = idx.cpu().numpy()
             sel = np.nonzero((idx >= 0) & (depth > 0))[0]
-            if len(sel) < 15:
-                # the JAX package's 2D-3D PnP branch, which needs 12 matches
-                if (idx >= 0).sum() < 12:
+            if len(sel) >= 15:
+                P = fr.xyz_cam[self._t(sel)]                   # camera frame
+                Q = self._t(st.pt_xyz[st.kf_kp_pt[kf_id][idx[sel]]])  # world
+                res = sim3_solver.sim3_ransac(
+                    P, Q, torch.ones((len(sel),), dtype=torch.bool,
+                                     device=self.device),
+                    self._reloc_gen, with_scale=False, inlier_thresh=0.10)
+                if int(res.n_inliers) < 15:
                     continue
-                raise NotImplementedError(
-                    "relocalization from matches without depth is the PnP "
-                    "branch; ROADMAP.md queue 1 item 7 (mono and the rest) "
-                    "ports solvers/pnp.py")
-            P = fr.xyz_cam[self._t(sel)]                       # camera frame
-            Q = self._t(st.pt_xyz[st.kf_kp_pt[kf_id][idx[sel]]])  # world
-            res = sim3_solver.sim3_ransac(
-                P, Q, torch.ones((len(sel),), dtype=torch.bool,
-                                 device=self.device),
-                self._reloc_gen, with_scale=False, inlier_thresh=0.10)
-            if int(res.n_inliers) < 15:
-                continue
-            Rwc = res.R.cpu().numpy()
-            twc = res.t.cpu().numpy()
-            R0 = Rwc.T.astype(np.float32)
-            t0 = (-Rwc.T @ twc).astype(np.float32)
+                Rwc = res.R.cpu().numpy()
+                twc = res.t.cpu().numpy()
+                R0 = Rwc.T.astype(np.float32)
+                t0 = (-Rwc.T @ twc).astype(np.float32)
+            else:
+                # no per-keypoint depth (monocular): 2D-3D PnP RANSAC on
+                # the bearings of the matched keypoints
+                sel = np.nonzero(idx >= 0)[0]
+                if len(sel) < 12:
+                    continue
+                Xw = self._t(st.pt_xyz[st.kf_kp_pt[kf_id][idx[sel]]])
+                rays = cam_mod.unproject(self.cam, fr.kp.xy[self._t(sel)])
+                uvn = rays[:, :2] / torch.clamp(rays[:, 2:3], min=1e-9)
+                self.n_pnp_calls += 1
+                res = pnp.pnp_ransac(
+                    Xw, uvn, torch.ones((len(sel),), dtype=torch.bool,
+                                        device=self.device),
+                    self._reloc_gen, inlier_thresh=4.0 / float(self.cam.fx))
+                if int(res.n_inliers) < 12:
+                    continue
+                R0 = res.R.cpu().numpy().astype(np.float32)
+                t0 = res.t.cpu().numpy().astype(np.float32)
             # refine with the candidate's local map
             covis, _ = st.covisibility(kf_id, min_weight=5)
             window = np.concatenate([[kf_id], covis[:10]])
@@ -616,6 +641,80 @@ class Tracker:
             self.last_kp_pt_id = kp_pt2
             return TrackResult(OK, R2, t2, int(n2), kp_pt2)
         return TrackResult(self.state, self.R, self.t, 0, empty)
+
+    # ------------------------------------------------------------------
+    def _initialize_mono(self, fr: frame_mod.Frame,
+                         timestamp: float) -> TrackResult:
+        """Monocular initialization: a reference frame (>= 100 features),
+        then wide-window matches to a later frame (>= 100, else that frame
+        becomes the reference) and the two-view reconstruction; the map is
+        scaled to median depth 1, KF0 sits at the origin and KF1 at the
+        recovered pose, both observing the triangulated points."""
+        with self.store.lock:
+            return self._initialize_mono_locked(fr, timestamp)
+
+    def _initialize_mono_locked(self, fr: frame_mod.Frame,
+                                timestamp: float) -> TrackResult:
+        st = self.store
+        n_kp = fr.kp.xy.shape[0]
+        empty = np.full((n_kp,), -1, np.int64)
+        n_feat = int(fr.kp.mask.sum())
+        if self._init_frame is None:
+            if n_feat >= 100:
+                self._init_frame = (fr, timestamp)
+            return TrackResult(NOT_INITIALIZED, self.R, self.t, 0, empty)
+        fr0, ts0 = self._init_frame
+        if n_feat < 100:
+            self._init_frame = None
+            return TrackResult(NOT_INITIALIZED, self.R, self.t, 0, empty)
+        idx, _ = matching.search_for_initialization(
+            fr0.kp.xy, fr0.kp.desc, fr0.kp.mask, fr.kp.xy, fr.kp.desc,
+            fr.kp.mask)
+        idx = idx.cpu().numpy()
+        sel = np.nonzero(idx >= 0)[0]
+        if len(sel) < 100:
+            self._init_frame = (fr, timestamp)  # reference too old; restart
+            return TrackResult(NOT_INITIALIZED, self.R, self.t, 0, empty)
+        p0 = cam_mod.unproject(self.cam, fr0.kp.xy[self._t(sel)])[:, :2]
+        p1 = cam_mod.unproject(self.cam, fr.kp.xy[self._t(idx[sel])])[:, :2]
+        res = two_view.reconstruct(
+            p0.contiguous(), p1.contiguous(),
+            torch.ones((len(sel),), dtype=torch.bool, device=self.device),
+            self._init_gen, sigma=1.0 / float(self.cam.fx), min_good=80)
+        success, inl, X, R21, t21 = fetch_to_host(
+            (res.success, res.inliers, res.points3d, res.R21, res.t21))
+        if not bool(success):
+            return TrackResult(NOT_INITIALIZED, self.R, self.t, 0, empty)
+        # scale: median depth -> 1
+        med = max(float(np.median(X[inl, 2])), 1e-6)
+        X = X / med
+        t21 = t21 / med
+        self.R = np.eye(3, dtype=np.float32)
+        self.t = np.zeros(3, np.float32)
+        kf0, _ = self._create_keyframe(fr0, ts0, np.full((n_kp,), -1))
+        pt_ids = st.alloc_pts(int(inl.sum()))
+        st.version += 1
+        st.pt_xyz[pt_ids] = X[inl]
+        st.pt_desc[pt_ids] = to_host(fr0.kp.desc)[sel[inl]]
+        st.pt_mask[pt_ids] = True
+        st.pt_ref_kf[pt_ids] = kf0
+        st.pt_first_kf[pt_ids] = kf0
+        st.pt_visible[pt_ids] = 1
+        st.pt_found[pt_ids] = 1
+        st.add_observations(kf0, pt_ids, sel[inl])
+        self.R = R21.astype(np.float32)
+        self.t = t21.astype(np.float32)
+        kf1, _ = self._create_keyframe(fr, timestamp, empty.copy())
+        st.add_observations(kf1, pt_ids, idx[sel[inl]])
+        st.kf_kp_pt[kf1, idx[sel[inl]]] = pt_ids
+        self.state = OK
+        self.ref_kf = kf1
+        self.ref_kf_npts = -1
+        self.frames_since_kf = 0
+        self.last_kp_pt_id = np.asarray(st.kf_kp_pt[kf1]).copy()
+        self._init_frame = None
+        return TrackResult(OK, self.R, self.t, int(inl.sum()),
+                           self.last_kp_pt_id, True, kf1)
 
     # ------------------------------------------------------------------
     def _initialize_depth(self, fr: frame_mod.Frame, timestamp: float,

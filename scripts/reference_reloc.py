@@ -9,7 +9,13 @@ first frame from which every state is OK, the final camera centre's error
 against ground truth and the ATE. ``chip_smoke.py`` phase 6 holds the port
 to the same state sequence.
 
-    JAX_PLATFORMS=cpu python scripts/reference_reloc.py [--blackout 80 86] [--frames 120]
+    JAX_PLATFORMS=cpu python scripts/reference_reloc.py [--blackout 80 86]
+        [--frames 120] [--recently-lost-keyframes N]
+
+``--recently-lost-keyframes N`` sets the tracker's ``min_kf_recently_lost``
+(10 by default): a map of fewer keyframes goes LOST, not RECENTLY_LOST.
+``chip_smoke.py`` phase 6 runs ``--frames 40 --blackout 30 33
+--recently-lost-keyframes 3``.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=120)
     ap.add_argument("--blackout", type=int, nargs=2, default=(80, 86))
+    ap.add_argument("--recently-lost-keyframes", type=int, default=None)
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -48,6 +55,8 @@ def main():
                        dense_mapping=False, pipelined=False,
                        depth_upload_decimation=2)
     system = System(cam, cfg)
+    if args.recently_lost_keyframes is not None:
+        system.tracker.min_kf_recently_lost = args.recently_lost_keyframes
     tex = synthetic.make_structured_texture(
         2048, rng=np.random.default_rng(7))
     scene = synthetic.SyntheticRGBD(cam, wall_z=3.0, texture=tex,
@@ -73,6 +82,7 @@ def main():
         "device": "cpu (jax " + jax.__version__ + ")",
         "frames": args.frames,
         "blackout": [a, b],
+        "min_kf_recently_lost": system.tracker.min_kf_recently_lost,
         "states": states,
         "ok_from": ok_from,
         "final_centre_err_m": float(np.linalg.norm(-R_end.T @ t_end - gt[-1])),

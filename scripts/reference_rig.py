@@ -20,7 +20,10 @@ fixed BA shapes, no loop closing, no lines, ``max_kf=256``,
 
 Prints one JSON line per phase.
 
-    JAX_PLATFORMS=cpu python scripts/reference_rig.py [--phase 10|11]
+    JAX_PLATFORMS=cpu python scripts/reference_rig.py [--phase 10|11] [--frames N]
+
+``--frames`` runs the first N poses instead (``chip_smoke.py`` runs 45 in
+phase 10 and 40 in phase 11).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ WALL_Z = 3.0
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", type=int, choices=(10, 11), default=None)
+    ap.add_argument("--frames", type=int, default=None)
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -69,7 +73,7 @@ def main():
     poses = tsyn.default_trajectory(120)
 
     for phase in (10, 11) if args.phase is None else (args.phase,):
-        n = 90 if phase == 10 else 60
+        n = args.frames or (90 if phase == 10 else 60)
         frames = list(rig.sequence(poses[:n]))
         cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2,
                            max_kf=256, max_pts=65536, use_lines=False,

@@ -20,7 +20,11 @@ inertial path: preintegration, the inertial-only initialization and the VI
 BA against the CPU (the two solves under sync-debug mode), and an RGB-D +
 IMU System through the pipelined runtime. Slice 9: the KB8 rig's frame,
 SGM disparity, the segmentation's edge stage and capped fill, and the
-ESDF's jump flooding, each on the card against the CPU.
+ESDF's jump flooding, each on the card against the CPU. Slice 10: the
+per-level ORB path, the two-view reconstruction, the PnP RANSAC and the
+plane-homography RANSAC (from the same samples), each on the card against
+the CPU, K1 at the monocular path's [512] x [1024] and the template's
+[345] x [1024], and a monocular System on the card.
 """
 
 import math
@@ -62,7 +66,7 @@ def _words(rng, n, dev):
 K1_SHAPES = [(4096, 1024), (2048, 1024), (1024, 1024), (512, 160),
              (256, 160), (128, 160), (1, 1), (15, 7), (17, 9), (63, 65),
              (129, 257), (1000, 999), (4097, 1023), (128, 128), (128, 512),
-             (1024, 5120), (777, 3072)]
+             (1024, 5120), (777, 3072), (512, 1024), (345, 1024)]
 # (q, k, kind of words): random words at every shape, the other kinds at
 # the small main-path shapes and across the edges
 K1_CASES = ([(q, k, "random") for q, k in K1_SHAPES]
@@ -943,3 +947,160 @@ def test_esdf_on_cuda_matches_cpu(dev):
     a = esdf.esdf_jfa(torch.from_numpy(occ), 0.02)
     b = esdf.esdf_jfa(torch.from_numpy(occ).to(dev), 0.02).cpu()
     torch.testing.assert_close(b, a, rtol=2.5e-7, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# slice 10: the monocular path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("h,w,n", [(256, 256, 512), (240, 320, 1024)])
+def test_per_level_orb_on_cuda_matches_cpu(dev, h, w, n):
+    """The per-level extraction (8 levels; the uniformity cells differ by
+    level) on the card against the CPU. Fed the same level, FAST's
+    selection (positions, scores, masks) is exact; descriptors from the
+    same patches and angles at least 99% of words exact and within 2 bits
+    a descriptor (the sampling product's 4 terms summed in cuBLAS's order:
+    a sample pair within a float32 step flips its bit, as between XLA and
+    torch on the CPU, tests/test_torch_features.py). End to end (each
+    device resizing its own pyramid) at least 97% of the keypoints
+    identical, as for the rig's frame below."""
+    from plvs_tpu_torch.features import fast, orb, pyramid
+
+    tex = synthetic.make_structured_texture(1024,
+                                            rng=np.random.default_rng(7))
+    img = torch.from_numpy(np.clip(tex[20:20 + h, 20:20 + w], 0, 255)
+                           .astype(np.uint8).astype(np.float32))
+    per = orb.features_per_level(n, 8, 1.2)
+    shapes = pyramid.level_shapes(h, w, 8, 1.2)
+    cells = [max(8, min(16, int(np.sqrt(hl * wl / max(nl, 1)))))
+             for (hl, wl), nl in zip(shapes, per)]
+    for lv, level in enumerate(pyramid.build_pyramid(img, 8, 1.2)):
+        if per[lv] <= 0:
+            continue
+        a = fast.detect(level, per[lv], border=orb.HALF + 1, cell=cells[lv])
+        b = fast.detect(level.to(dev), per[lv], border=orb.HALF + 1,
+                        cell=cells[lv])
+        for x, y in zip(a, b):
+            assert torch.equal(x, y.cpu())
+        blurred = pyramid.gaussian_blur(level)
+        bp = orb.extract_patches(blurred, a[0])
+        ang = orb.ic_angle(orb.extract_patches(level, a[0]))
+        da = orb.descriptors(bp, ang)
+        db = orb.descriptors(bp.to(dev), ang.to(dev)).cpu()
+        assert (da == db).float().mean() >= 0.99
+        from plvs_tpu_torch.features import matching
+
+        assert int(matching.hamming_pairs(da, db).max()) <= 2
+    ka = orb.extract(img, n, 8)
+    kb = orb.extract(img.to(dev), n, 8)
+    same = ((ka.xy == kb.xy.cpu()).all(-1) & (ka.mask == kb.mask.cpu()))
+    assert same.float().mean() >= 0.97
+    assert torch.equal(ka.octave, kb.octave.cpu())
+
+
+def test_two_view_on_cuda_matches_cpu(dev):
+    """The two-view reconstruction on the card from the CPU's samples: the
+    same model, inliers and good count; R21 and t21 within 1e-4 (cuSOLVER's
+    singular vectors differ in sign and the E decomposition's pair in
+    order, which the cheirality scoring resolves: the same pose wins)."""
+    from plvs_tpu_torch.solvers import two_view
+
+    rng = np.random.default_rng(3)
+    n = 300
+    X = np.stack([rng.uniform(-1, 1, n), rng.uniform(-1, 1, n),
+                  rng.uniform(3, 6, n)], -1)
+    a = 0.05
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]])
+    X2 = X @ R.T + [-0.3, 0.02, 0.05]
+    p1 = torch.from_numpy((X[:, :2] / X[:, 2:] + rng.normal(
+        0, 2e-3, (n, 2))).astype(np.float32))
+    p2 = torch.from_numpy((X2[:, :2] / X2[:, 2:] + rng.normal(
+        0, 2e-3, (n, 2))).astype(np.float32))
+    valid = torch.from_numpy(rng.random(n) >= 0.1)
+    sF, sH = two_view.draw_samples(valid, torch.Generator().manual_seed(1))
+    ra = two_view.reconstruct_from_samples(p1, p2, valid, sF, sH,
+                                           sigma=1 / 500, min_good=80)
+    rb = two_view.reconstruct_from_samples(
+        p1.to(dev), p2.to(dev), valid.to(dev), sF.to(dev), sH.to(dev),
+        sigma=1 / 500, min_good=80)
+    assert bool(ra.success) and bool(rb.success)
+    assert bool(ra.used_homography) == bool(rb.used_homography)
+    assert torch.equal(ra.inliers, rb.inliers.cpu())
+    torch.testing.assert_close(rb.R21.cpu(), ra.R21, atol=1e-4, rtol=0)
+    torch.testing.assert_close(rb.t21.cpu(), ra.t21, atol=1e-4, rtol=0)
+
+
+def test_pnp_and_plane_ransac_on_cuda_match_cpu(dev):
+    """The PnP RANSAC and the plane-homography RANSAC on the card from the
+    CPU's samples: the same inliers, poses within 1e-4; the PnP's 8-step
+    polish under sync-debug mode (no host read inside; the hypotheses'
+    SVDs read their status back)."""
+    from plvs_tpu_torch.slam import map_objects
+    from plvs_tpu_torch.solvers import pnp
+
+    rng = np.random.default_rng(3)
+    n = 200
+    X = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1, 1, n),
+                  rng.uniform(2, 6, n)], -1).astype(np.float32)
+    Xc = X + np.array([0.2, -0.1, 0.3], np.float32)
+    uv = (Xc[:, :2] / Xc[:, 2:] + rng.normal(0, 2e-3, (n, 2))).astype(
+        np.float32)
+    out = rng.random(n) < 0.4
+    uv[out] += rng.uniform(-0.2, 0.2, (out.sum(), 2)).astype(np.float32)
+    valid = torch.ones(n, dtype=torch.bool)
+    X, uv = torch.from_numpy(X), torch.from_numpy(uv)
+    s = pnp.draw_samples(valid, torch.Generator().manual_seed(2))
+    ra = pnp.pnp_ransac_from_samples(X, uv, valid, s, inlier_thresh=4 / 500)
+    rb = pnp.pnp_ransac_from_samples(*(t.to(dev) for t in (X, uv, valid, s)),
+                                     inlier_thresh=4 / 500)
+    w = ra.inliers.to(torch.float32)
+    xa = pnp._polish(ra.R, ra.t, X, uv, w, 8)
+    args = [t.to(dev) for t in (ra.R, ra.t, X, uv, w)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        xb = pnp._polish(*args, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.testing.assert_close(xb.cpu(), xa, atol=1e-5, rtol=0)
+    assert torch.equal(ra.inliers, rb.inliers.cpu())
+    torch.testing.assert_close(rb.R.cpu(), ra.R, atol=1e-4, rtol=0)
+    torch.testing.assert_close(rb.t.cpu(), ra.t, atol=1e-4, rtol=0)
+    plane = torch.from_numpy(rng.uniform(0, 1, (150, 2)).astype(np.float32))
+    P = torch.cat([plane, torch.zeros(150, 1)], -1) + torch.tensor(
+        [-0.5, -0.5, 2.5])
+    img = P[:, :2] / P[:, 2:] + torch.from_numpy(rng.normal(
+        0, 1 / 600, (150, 2)).astype(np.float32))
+    ok = torch.from_numpy(rng.random(150) < 0.9)
+    samples = map_objects.draw_samples(ok, torch.Generator().manual_seed(3))
+    Ha, ia, _ = map_objects.ransac_plane_homography_from_samples(
+        plane, img, ok, 1 / 300 ** 2, samples)
+    Hb, ib, _ = map_objects.ransac_plane_homography_from_samples(
+        plane.to(dev), img.to(dev), ok.to(dev), 1 / 300 ** 2,
+        samples.to(dev))
+    assert torch.equal(ia, ib.cpu())
+    torch.testing.assert_close(Hb.cpu(), Ha, atol=1e-4, rtol=1e-4)
+
+
+def test_mono_system_on_cuda(dev):
+    """A monocular System on the card over 12 frames of
+    tests/test_slam_e2e.py TestMonocular's scene at 320x240: the two-view
+    map at frame 1, every later frame OK, map growth by triangulation, and
+    K1 launched for the initializer's and the triangulation's matches."""
+    cam = cameras.pinhole(300.0, 300.0, 160.0, 120.0, width=320, height=240,
+                          bf=24.0)
+    scene = synthetic.SyntheticRGBD(cam, wall_z=3.0, seed=9)
+    poses = [(np.eye(3, dtype=np.float32),
+              -np.array([1.6 * i / 39, 0.1 * np.sin(2 * np.pi * i / 39),
+                         0.3 * i / 39], np.float32)) for i in range(12)]
+    system = System(cam, SystemConfig(
+        num_features=512, n_levels=4, max_kf=64, max_pts=16384,
+        loop_closing=False, sensor="mono", max_kf_interval=5,
+        min_kf_inliers=25), device="cuda")
+    hamming.launches = 0
+    states = [int(system.track_monocular(g, ts)[0])
+              for ts, g, _, _, _ in scene.sequence(poses=poses)]
+    assert states[0] == 1 and all(s_ == 2 for s_ in states[1:]), states
+    assert sum(system.local_mapper.new_points_log) > 0
+    assert hamming.launches > 12

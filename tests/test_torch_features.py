@@ -3,6 +3,7 @@ the JAX package's on equal inputs. Integer outputs (masks, keypoint
 positions, descriptor bits, match indices, component labels) must agree
 exactly; float outputs carry the tolerance stated at each check."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -268,3 +269,173 @@ def test_detect_and_extract_lines(gray):
     jn = np.asarray(jlines.line_nld(je.sp, je.ep))[em]
     np.testing.assert_allclose(tn[:, :2], jn[:, :2], atol=1e-3)
     np.testing.assert_allclose(tn[:, 2], jn[:, 2], atol=0.2)
+
+
+# ---------------------------------------------------------------------------
+# the per-level extraction path (uniformity cells that differ by level)
+# ---------------------------------------------------------------------------
+
+# (h, w, features, levels): the map-object template's extraction and
+# 320x240 at bench.py's budget (image_scale=0.5 on bench.py's camera)
+PER_LEVEL = [(256, 256, 512, 8), (240, 320, 1024, 8)]
+
+
+def _per_level_case(h, w, n, levels):
+    """A quantized crop of the structured texture, the per-level budgets
+    and cells (which must differ: the per-level path is taken)."""
+    tex = tsyn.make_structured_texture(1024, rng=np.random.default_rng(7))
+    img = np.clip(tex[20:20 + h, 20:20 + w], 0, 255).astype(np.uint8)
+    per = torb.features_per_level(n, levels, SCALE)
+    assert per == jorb.features_per_level(n, levels, SCALE)
+    shapes = tpyr.level_shapes(h, w, levels, SCALE)
+    cells = [max(8, min(16, int(np.sqrt(hl * wl / max(nl, 1)))))
+             for (hl, wl), nl in zip(shapes, per)]
+    assert len({cells[lv] for lv in range(levels) if per[lv] > 0}) > 1
+    return img.astype(np.float32), per, cells
+
+
+# jitted, as the JAX package runs them (eager dispatch compiles op by op)
+_JIT_DETECT = jax.jit(jfast.detect, static_argnums=(1,),
+                      static_argnames=("border", "cell"))
+_JIT_BLUR = jax.jit(jpyr.gaussian_blur)
+
+
+@pytest.mark.parametrize("h,w,n,levels", PER_LEVEL)
+def test_per_level_steps_on_the_jax_levels(h, w, n, levels):
+    """Fed each JAX pyramid level: the single-level FAST selection (masks,
+    positions, scores) and the patches are exact; the single-image blur
+    within 1e-4 (as the batched blur above); the IC angle from the
+    UNBLURRED patch within 2e-3 rad (measured 1.1e-3: an unblurred patch
+    whose moments nearly cancel turns the sums' float32 order into angle;
+    the steering bins are 0.21 rad wide); descriptors from JAX's
+    blurred patches and angles at least 99% of words exact and every
+    descriptor within 2 bits. Not all exact: the 30-bin sampling is one float32
+    product whose 4 non-zero terms XLA's dot and torch's matmul sum in
+    different association (a tenth of the samples differ in the last
+    place, measured), and on smooth blurred patches a sample pair that
+    close flips its bit (measured: 1 descriptor of 64 on one level 2 bits
+    apart, the rest exact); random
+    patches (test_descriptors_from_equal_patches) show no such pair."""
+    img, per, cells = _per_level_case(h, w, n, levels)
+    jlevels = jpyr.build_pyramid(jnp.asarray(img), levels, SCALE)
+    for lv, (jl, n_l) in enumerate(zip(jlevels, per)):
+        if n_l <= 0:
+            continue
+        jl = np.asarray(jl)
+        jxy, jsc, jva = _JIT_DETECT(jnp.asarray(jl), n_l,
+                                    border=jorb.HALF + 1, cell=cells[lv])
+        txy, tsc, tva = tfast.detect(torch.from_numpy(jl), n_l,
+                                     border=torb.HALF + 1, cell=cells[lv])
+        np.testing.assert_array_equal(tva.numpy(), np.asarray(jva))
+        np.testing.assert_array_equal(txy.numpy(), np.asarray(jxy))
+        np.testing.assert_array_equal(tsc.numpy(), np.asarray(jsc))
+        jp = np.asarray(jorb.extract_patches(jnp.asarray(jl), jxy))
+        tp = torb.extract_patches(torch.from_numpy(jl), txy)
+        np.testing.assert_array_equal(tp.numpy(), jp)
+        ja = np.asarray(jorb.ic_angle(jnp.asarray(jp)))
+        np.testing.assert_allclose(torb.ic_angle(tp).numpy(), ja, atol=2e-3)
+        jb = np.asarray(_JIT_BLUR(jnp.asarray(jl)))
+        np.testing.assert_allclose(
+            tpyr.gaussian_blur(torch.from_numpy(jl)).numpy(), jb, atol=1e-4)
+        jbp = np.asarray(jorb.extract_patches(jnp.asarray(jb), jxy))
+        jd = np.asarray(jorb.descriptors(jnp.asarray(jbp), jnp.asarray(ja)))
+        td = torb.descriptors(torch.from_numpy(jbp), torch.from_numpy(ja))
+        words_same = td.numpy() == jd.view(np.int32)
+        assert words_same.mean() >= 0.99, (lv, words_same.mean())
+        bits = tmatch.hamming_pairs(td, _jw(jd)).numpy()
+        assert bits.max() <= 2, (lv, np.bincount(bits))
+
+
+_JIT_EXTRACT = jax.jit(jorb.extract, static_argnums=(1, 2))
+
+
+@pytest.mark.parametrize("h,w,n,levels", PER_LEVEL)
+def test_per_level_extract_end_to_end(h, w, n, levels):
+    """The whole per-level extraction against the JAX package's: keypoints,
+    octaves and masks identical (measured: all), responses within 0.1 (a
+    sum of 16 threshold excesses on levels that differ by ~1e-3, measured
+    0.06), and the descriptors of the valid keypoints identical (measured:
+    all 230 and 326; the sampling product's association, which can flip a
+    bit on smooth patches, test_per_level_steps_on_the_jax_levels, leaves
+    these two images' bits alone)."""
+    img, _, _ = _per_level_case(h, w, n, levels)
+    jk = _JIT_EXTRACT(jnp.asarray(img), n, levels)
+    tk = torb.extract(torch.from_numpy(img), n, levels)
+    np.testing.assert_array_equal(tk.xy.numpy(), np.asarray(jk.xy))
+    np.testing.assert_array_equal(tk.octave.numpy(), np.asarray(jk.octave))
+    np.testing.assert_array_equal(tk.mask.numpy(), np.asarray(jk.mask))
+    np.testing.assert_allclose(tk.response.numpy(), np.asarray(jk.response),
+                               atol=0.1)
+    valid = np.asarray(jk.mask)
+    assert valid.sum() >= 200, valid.sum()
+    np.testing.assert_array_equal(tk.desc.numpy()[valid],
+                                  np.asarray(jk.desc).view(np.int32)[valid])
+
+
+def _kp_set(rng, n, w=320, h=240):
+    return dict(
+        xy=rng.uniform(0, [w, h], (n, 2)).astype(np.float32),
+        desc=rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(
+            np.uint32),
+        mask=rng.random(n) < 0.9)
+
+
+def test_search_for_initialization_equal_inputs(rng):
+    """Exact: a 100 px window around each keypoint and the ratio test."""
+    a = _kp_set(rng, 400)
+    b = _kp_set(rng, 380)
+    # a second view: noisy copies of half the keypoints, 30 px away
+    b["xy"][:200] = a["xy"][:200] + rng.normal(0, 30, (200, 2))
+    b["desc"][:200] = a["desc"][:200] ^ (
+        rng.integers(0, 2 ** 32, (200, 8), dtype=np.uint64).astype(np.uint32)
+        & rng.integers(0, 2 ** 32, (200, 8), dtype=np.uint64).astype(
+            np.uint32)
+        & rng.integers(0, 2 ** 32, (200, 8), dtype=np.uint64).astype(
+            np.uint32))
+    j_idx, j_d = jmatch.search_for_initialization(
+        *(jnp.asarray(a[k]) for k in ("xy", "desc", "mask")),
+        *(jnp.asarray(b[k]) for k in ("xy", "desc", "mask")))
+    t_idx, t_d = tmatch.search_for_initialization(
+        *(_jw(a[k]) if k == "desc" else torch.from_numpy(a[k])
+          for k in ("xy", "desc", "mask")),
+        *(_jw(b[k]) if k == "desc" else torch.from_numpy(b[k])
+          for k in ("xy", "desc", "mask")))
+    assert (np.asarray(j_idx) >= 0).sum() > 50
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(t_d.numpy(), np.asarray(j_d))
+
+
+def test_search_for_triangulation_equal_inputs(rng):
+    """Exact: the float32 epipolar gate (|ray1 . l| / |l_xy| + 1e-12
+    against 2 / fx, JAX's operation order) and the ratio test."""
+    n1, n2 = 350, 330
+    X = np.stack([rng.uniform(-1, 1, 300), rng.uniform(-1, 1, 300),
+                  rng.uniform(2, 5, 300)], -1)
+    R12 = np.array([[np.cos(0.05), 0, np.sin(0.05)], [0, 1, 0],
+                    [-np.sin(0.05), 0, np.cos(0.05)]], np.float32)
+    t12 = np.array([0.2, 0.01, 0.03], np.float32)
+    X2 = (X - t12) @ R12            # x2 = R12^T (x1 - t12)
+    rays1 = np.concatenate([X[:, :2] / X[:, 2:], np.ones((300, 1))], -1)
+    rays2 = np.concatenate([X2[:, :2] / X2[:, 2:], np.ones((300, 1))], -1)
+    rays1 = np.concatenate([rays1, rng.uniform(-0.5, 0.5, (n1 - 300, 3))
+                            + [0, 0, 1]]).astype(np.float32)
+    rays2 = np.concatenate([rays2[:280], rng.uniform(-0.5, 0.5, (n2 - 280, 3))
+                            + [0, 0, 1]]).astype(np.float32)
+    d1 = rng.integers(0, 2 ** 32, (n1, 8), dtype=np.uint64).astype(np.uint32)
+    d2 = rng.integers(0, 2 ** 32, (n2, 8), dtype=np.uint64).astype(np.uint32)
+    d2[:280] = d1[:280] ^ (d2[:280] & rng.integers(
+        0, 2 ** 32, (280, 8), dtype=np.uint64).astype(np.uint32)
+        & rng.integers(0, 2 ** 32, (280, 8), dtype=np.uint64).astype(
+            np.uint32))
+    m1, m2 = rng.random(n1) < 0.9, rng.random(n2) < 0.9
+    j_idx, j_d = jmatch.search_for_triangulation(
+        jnp.asarray(d1), jnp.asarray(m1), jnp.asarray(rays1),
+        jnp.asarray(d2), jnp.asarray(m2), jnp.asarray(rays2),
+        jnp.asarray(R12), jnp.asarray(t12), epi_thresh=2.0 / 300.0)
+    t_idx, t_d = tmatch.search_for_triangulation(
+        _jw(d1), torch.from_numpy(m1), torch.from_numpy(rays1), _jw(d2),
+        torch.from_numpy(m2), torch.from_numpy(rays2), torch.from_numpy(R12),
+        torch.from_numpy(t12), epi_thresh=2.0 / 300.0)
+    assert (np.asarray(j_idx) >= 0).sum() > 100
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(t_d.numpy(), np.asarray(j_d))

@@ -14,7 +14,8 @@ FILES = sorted(
     + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_port_frame.py",
        ROOT / "scripts" / "probe_k1_design.py",
        ROOT / "scripts" / "count_ba_ops.py",
-       ROOT / "scripts" / "count_imu_ops.py"])
+       ROOT / "scripts" / "count_imu_ops.py",
+       ROOT / "scripts" / "count_orb_ops.py"])
 FORBIDDEN = ("jax", "jaxlib", "plvs_tpu")
 
 
@@ -54,6 +55,9 @@ def test_the_walk_covers_the_port():
     assert "scripts/count_imu_ops.py" in names
     for mod in ("geometry/rectify.py", "dense/esdf.py", "dense/labels.py",
                 "utils/depth_model.py"):
+        assert f"plvs_tpu_torch/{mod}" in names, mod
+    for mod in ("solvers/two_view.py", "solvers/pnp.py",
+                "solvers/autodiff.py", "slam/map_objects.py"):
         assert f"plvs_tpu_torch/{mod}" in names, mod
     assert len(names) > 30
     for src in ("import jax.numpy as jnp", "from plvs_tpu.ops import stereo",

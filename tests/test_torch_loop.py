@@ -313,14 +313,17 @@ def test_pose_graph_fixed_trip_counts_equal_host_loop(chain, num_iters,
 
 
 def test_pose_graph_unported_options_raise(chain):
-    """Map objects (item 7) and the sharded pose graph (item 8) raise; the
-    4-DoF correction of inertial maps (``gravity_w``, ``dof4_axis``) is
-    ported since slice 8 (tests/test_torch_vi_ba.py holds it to JAX)."""
+    """The sharded pose graph (item 8) raises; map objects are ported
+    since slice 10 (tests/test_torch_map_objects.py holds their loop move)
+    and the 4-DoF correction of inertial maps (``gravity_w``,
+    ``dof4_axis``) since slice 8 (tests/test_torch_vi_ba.py holds it to
+    JAX)."""
     st = tmap_store.MapStore(max_kf=4, max_pts=16, n_kp=8)
-    for kw, item in ((dict(object_store=object()), "item 7"),
-                     (dict(mesh=object()), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            tloop.LoopCloser(st, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tloop.LoopCloser(st, device="cpu", mesh=object())
+    objs = object()
+    assert tloop.LoopCloser(st, device="cpu",
+                            object_store=objs).object_store is objs
     g = np.array([0.3, 9.7, -0.4], np.float32)
     assert tloop.LoopCloser(st, device="cpu", gravity_w=g).gravity_w is g
 
