@@ -117,9 +117,21 @@ levels: ORB's per-level path) with local BA, loop closing and one planar
 map object (``add_map_object``), held to ``reference_mono.py --phase
 14``: every frame OK, the ATE, the map, the object's detections and its
 corners on the wall (tests/test_objects_e2e.py's gates); it prints the
-per-level extraction's ms at 320x240 and for the template. After each of
-phases 2-14, K1 is held exact against its plain version at every shape
-that phase launched and no earlier phase had checked. Each phase prints
+per-level extraction's ms at 320x240 and for the template. Phase 15
+drives slice 11's program around the tracker: phase 2's System writes its
+TUM, KITTI and EuRoC trajectories (the TUM file read back within 1e-6 m of
+``retro_trajectory()``) and its atlas (``shutdown(save_map_path=...)``); a
+fresh System on the card loads the atlas (``load_map``: keyframes frozen,
+RELOCALIZE_IN_LOADED_MAP) and replays frames 18-29 of the same sweep,
+relocalizing in the loaded map (BoW candidates, K1 matches, the SE3
+RANSAC), held to ``scripts/reference_map_reuse.py --frames 40``: state 4
+before the first frame, OK from JAX's first OK frame, the median
+camera-centre error within JAX's + 1 cm, one map, every loaded keyframe
+pose bit-equal; then ``run_slam.main(["--synthetic", "--frames", "8",
+"--device", "cuda", ...])`` must print its ATE and write a trajectory and
+an atlas that ``load_atlas`` reads. After each of phases 2-15, K1 is held
+exact against its plain version at every shape that phase launched and no
+earlier phase had checked. Each phase prints
 its wall seconds (``phase N: wall``); the run keeps well inside its
 1,200 s limit only because phases 2-4 and 6-11 run fewer frames than
 their scenes allow (the constants below say how many).
@@ -358,6 +370,22 @@ REF_SCALED = {"ate_rmse_m": 0.008550482888938568,
 SCALED_ATE_BOUND_M = max(1.5 * REF_SCALED["ate_rmse_m"],
                          REF_SCALED["ate_rmse_m"] + 0.01)
 N_MONO_FRAMES = 40
+# JAX package's figures on phase 15's map reuse: phase 2's 40-frame run
+# saved with shutdown(save_map_path=...), loaded into a fresh System with
+# the same configuration (load_map(freeze=True, force_relocalization=True))
+# and frames 18-29 of the same sweep replayed (CPU run of JAX_PLATFORMS=cpu
+# python scripts/reference_map_reuse.py --frames 40, 164 s): 4 keyframes
+# loaded and frozen, RELOCALIZE_IN_LOADED_MAP (4) before the first frame,
+# OK on every replayed frame from frame 18, camera-centre errors
+# 2.27-7.67 mm (median 5.59 mm), one map, the loaded poses bit-equal after
+# the replay. Phase 15 holds the port to: state 4 before the first frame,
+# OK from JAX's first OK frame on, the median centre error within JAX's +
+# 1 cm, one map, and every loaded keyframe pose bit-equal.
+REF_REUSE = {"state_before": 4, "first_ok": 18, "n_ok": 12,
+             "median_centre_err_m": 0.005589180625975132, "n_maps": 1,
+             "loaded_keyframes": 4}
+REUSE_REPLAY = (18, 30)
+REUSE_ERR_BOUND_M = REF_REUSE["median_centre_err_m"] + 0.01
 
 # phases 2-4 and 6-7: bench.py's sweep (default_trajectory) in 40 frames,
 # three times the step of a 120-frame run, to keep the script well inside
@@ -2101,6 +2129,134 @@ def _phase14(torch, cam, k1_ms_at: dict, words) -> dict:
                        for k, v in orb_log.items()}}
 
 
+def _phase15(torch, cam, system, frames, brackets, k1_ms_at: dict,
+             words) -> dict:
+    """Slice 11's program around the tracker: phase 2's System (``system``,
+    after its ``frames``) writes its TUM, KITTI and EuRoC trajectories and
+    its atlas (``shutdown(save_map_path=...)``); a fresh System on the card
+    loads the atlas and relocalizes in it over frames 18-29 (BoW
+    candidates, K1 matches, the SE3 RANSAC); then ``run_slam.main`` runs
+    the synthetic sequence on the card. Returns the launches, the largest
+    K1 error at new shapes and K1's bracketed device ms."""
+    import io
+    import tempfile
+
+    from plvs_tpu_torch import run_slam
+    from plvs_tpu_torch.io import serialization, trajectory
+    from plvs_tpu_torch.ops import cc_labels, hamming, stereo
+    from plvs_tpu_torch.slam import System
+    from plvs_tpu_torch.slam.tracking import OK, RELOCALIZE_IN_LOADED_MAP
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, f"traj.{k}")
+                 for k in ("tum", "kitti", "euroc")}
+        system.save_trajectory_tum(paths["tum"])
+        system.save_trajectory_kitti(paths["kitti"])
+        system.save_trajectory_euroc(paths["euroc"])
+        retro = system.retro_trajectory()
+        tum = trajectory.read_tum(paths["tum"])
+        centres = np.stack([-R.T @ t for _, R, t in retro])
+        tum_err = float(np.abs(tum[:, 1:4] - centres).max())
+        rows = {k: sum(1 for _ in open(p)) for k, p in paths.items()}
+        atlas = os.path.join(tmp, "atlas.npz")
+        system.shutdown(save_map_path=atlas)
+        atlas_mb = os.path.getsize(atlas) / 2 ** 20
+        print(f"phase 15: phase 2's run wrote {rows} trajectory rows (TUM "
+              f"read back within {tum_err:.2e} m of retro_trajectory()) and "
+              f"a {atlas_mb:.2f} MiB atlas")
+        if len(tum) != len(frames) or rows["kitti"] != len(frames) or \
+                rows["euroc"] != len(frames) + 1:
+            _fail(f"phase 15 trajectory rows {rows} for {len(frames)} frames")
+        if not tum_err <= 1e-6:
+            _fail(f"phase 15 TUM file {tum_err} m from retro_trajectory()")
+
+        t1 = time.perf_counter()
+        reuse = System(cam, system.config, device="cuda")
+        reuse.load_map(atlas, freeze=True, force_relocalization=True)
+        load_ms = (time.perf_counter() - t1) * 1e3
+    st = reuse.store
+    frozen = np.nonzero(st.kf_fixed)[0]
+    R0, t0_ = st.kf_R[frozen].copy(), st.kf_t[frozen].copy()
+    state_before = int(reuse.tracker.state)
+    reloc_idx = _k1_inside(brackets, reuse.tracker, "_relocalize")
+    a, b = REUSE_REPLAY
+    hamming.launches = cc_labels.launches = stereo.launches = 0
+    hamming.shapes.clear()
+    states, errs, ms = [], [], []
+    with brackets.run():
+        for ts, g, d, R_gt, t_gt in frames[a:b]:
+            t1 = time.perf_counter()
+            state, R, t = reuse.track_rgbd(g, d, ts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            states.append(int(state))
+            if state == OK:
+                errs.append(float(np.linalg.norm(-R.T @ t + R_gt.T @ t_gt)))
+    launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
+                "stereo_wta": stereo.launches}
+    mix = dict(hamming.shapes)
+    by_shape = brackets.ms_by_shape()
+    reloc_by_shape = brackets.ms_by_shape(reloc_idx)
+    first_ok = next((a + k for k, s_ in enumerate(states) if s_ == OK), None)
+    med = float(np.median(errs)) if errs else float("inf")
+    frozen_same = bool(np.array_equal(st.kf_R[frozen], R0)
+                       and np.array_equal(st.kf_t[frozen], t0_))
+    print(f"phase 15: load_map of {len(frozen)} keyframes {load_ms:.1f} ms; "
+          f"state before the replay {state_before} (JAX "
+          f"{REF_REUSE['state_before']}); frames {a}-{b - 1}: states "
+          f"{states}, first OK {first_ok} (JAX {REF_REUSE['first_ok']}); "
+          f"camera-centre error median {med:.6f} m (JAX "
+          f"{REF_REUSE['median_centre_err_m']:.6f}, bound "
+          f"{REUSE_ERR_BOUND_M:.6f}), max {max(errs, default=0.0):.6f} m; "
+          f"relocalizing frame {ms[0]:.1f} ms, later frames "
+          f"{np.median(ms[1:]):.1f} ms median; maps {st.n_maps}; loaded "
+          f"poses unchanged {frozen_same}; launches {launches}")
+    print("phase 15: K1 launches by Q x K: " + ", ".join(
+        f"{q}x{k} {n}" for (q, k), n in sorted(mix.items())))
+    err = _hold_k1(torch, hamming, words, k1_ms_at, mix, 15)
+    dev_ms = _k1_report(15, "over the replay", by_shape, k1_ms_at,
+                        brackets)[0]
+    _k1_report(15, "inside relocalization", reloc_by_shape, k1_ms_at)
+    if state_before != RELOCALIZE_IN_LOADED_MAP:
+        _fail(f"phase 15 state {state_before} after load_map")
+    if len(frozen) != REF_REUSE["loaded_keyframes"]:
+        _fail(f"phase 15 loaded {len(frozen)} frozen keyframes; JAX "
+              f"{REF_REUSE['loaded_keyframes']}")
+    if first_ok != REF_REUSE["first_ok"] or \
+            not all(s_ == OK for s_ in states[first_ok - a:]):
+        _fail(f"phase 15 states {states}; JAX OK from "
+              f"{REF_REUSE['first_ok']}")
+    if not med <= REUSE_ERR_BOUND_M:
+        _fail(f"phase 15 median centre error {med} m over the bound "
+              f"{REUSE_ERR_BOUND_M} m")
+    if st.n_maps != REF_REUSE["n_maps"] or not frozen_same:
+        _fail(f"phase 15 maps {st.n_maps}, loaded poses unchanged "
+              f"{frozen_same}")
+    if not reloc_by_shape:
+        _fail("phase 15 relocalized without a K1 launch")
+    reuse.shutdown()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, mp = os.path.join(tmp, "traj.txt"), os.path.join(tmp, "map.npz")
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            run_slam.main(["--synthetic", "--frames", "8", "--device",
+                           "cuda", "--out", out, "--save-map", mp])
+        cli_s = time.perf_counter() - t1
+        text = buf.getvalue()
+        res = json.loads(text.splitlines()[0])
+        st2, voc = serialization.load_atlas(mp)
+        print(f"phase 15: run_slam --synthetic --frames 8 --device cuda in "
+              f"{cli_s:.1f} s: {res}; {sum(1 for _ in open(out))} trajectory "
+              f"rows; the atlas loads: {st2.num_keyframes} keyframes, "
+              f"{st2.num_points} points, vocabulary of {voc.n_words} words")
+        if "ate_rmse" not in res or not np.isfinite(res["ate_rmse"]) or \
+                st2.num_keyframes < 1 or not os.path.exists(out):
+            _fail(f"phase 15 run_slam gave {text!r}")
+    return {"launches": launches, "k1_err": err, "k1_device_ms": dev_ms}
+
+
 def main() -> int:
     import torch
 
@@ -2418,17 +2574,19 @@ def main() -> int:
     run12 = timed(12, _phase12, torch, cam, k1_ms_at, words)
     run13 = timed(13, _phase13, torch, cam, brackets, k1_ms_at, words)
     run14 = timed(14, _phase14, torch, cam, k1_ms_at, words)
+    run15 = timed(15, _phase15, torch, cam, system, frames, brackets,
+                  k1_ms_at, words)
     launches5, launches6 = run5["launches"], run6["launches"]
     launches7, launches8 = run7["launches"], run8["launches"]
     launches9 = run9["launches"]
     later = {10: run10["launches"], 11: run11["launches"],
              12: run12["launches"], 13: run13["launches"],
-             14: run14["launches"]}
+             14: run14["launches"], 15: run15["launches"]}
     k1_err = max(k1_err, launches3["k1_err"], launches4["k1_err"],
                  run5["k1_err"], run6["k1_err"], run7["k1_err"],
                  run8["k1_err"], run9["k1_err"], run10["k1_err"],
                  run11["k1_err"], run12["k1_err"], run13["k1_err"],
-                 run14["k1_err"])
+                 run14["k1_err"], run15["k1_err"])
 
     kernels = [
         {"name": "hamming_matrix", "route": "cuda",
@@ -2453,7 +2611,8 @@ def main() -> int:
          **{f"launches_phase{p}": v["hamming"] for p, v in later.items()},
          "device_ms_phase10": run10["k1_device_ms"],
          "device_ms_phase11": run11["k1_device_ms"],
-         "device_ms_phase13": run13["k1_device_ms"]},
+         "device_ms_phase13": run13["k1_device_ms"],
+         "device_ms_phase15": run15["k1_device_ms"]},
         {"name": "cc_min_labels", "route": "cuda",
          "source": "plvs_tpu_torch/csrc/cc_labels.cu",
          "replaces": "plvs_tpu/ops/cc_labels.py:95",

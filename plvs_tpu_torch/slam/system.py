@@ -58,6 +58,12 @@ trajectory records the resolved poses, and ``_finish_frame`` bounds the
 window by the observed rotation rate. ``flush()`` settles everything;
 the trajectory exports, ``time_stats`` and ``shutdown`` call it. All
 device work goes to the device's default stream, shared by every thread.
+
+A session ends with ``shutdown``, which can save the atlas and the dense
+volume (``io/serialization.py``, files either package reads); ``load_map``
+reuses a saved atlas, its keyframes frozen, tracking from
+``RELOCALIZE_IN_LOADED_MAP``; ``reset`` rebuilds the System from its
+constructor's arguments, keeping the trajectory log.
 """
 
 from __future__ import annotations
@@ -70,10 +76,13 @@ import numpy as np
 import torch
 
 from ..dense.mapping import DenseMapper
+from ..dense.meshing import IncrementalMesher
 from ..features import pyramid
 from ..geometry import cameras as cam_mod
 from ..geometry import lie
 from ..geometry.rectify import StereoRectifier
+from ..io import serialization
+from ..io import trajectory as traj_io
 from ..ops import resolve_device
 from ..utils.fetch import HelperFetch, SyncFetch, to_host
 from ..utils.profiling import Stopwatch
@@ -178,6 +187,11 @@ class System:
         ``imu_calib`` (``imu.preintegration.ImuCalib`` noise densities)
         and ``imu_T_b_c`` (4x4 camera-in-body extrinsic, X_b = T X_c)
         configure the inertial runtime when ``config.use_imu`` is set."""
+        # the constructor's arguments, so reset() rebuilds the same system
+        # (rig, IMU calibration and device included)
+        self._ctor_args = dict(cam=cam, config=config, device=device,
+                               cam2=cam2, T_c1_c2=T_c1_c2,
+                               imu_calib=imu_calib, imu_T_b_c=imu_T_b_c)
         self.config = c = config or SystemConfig()
         for name, (ok_value, item) in _NOT_IN_SLICE.items():
             if getattr(c, name) != ok_value:
@@ -318,6 +332,46 @@ class System:
         count per stage over the run), after a flush."""
         self.flush()
         return self.stopwatch.stats()
+
+    def print_time_stats(self) -> str:
+        """Print and return the per-stage timing table."""
+        self.flush()
+        report = self.stopwatch.report()
+        print(report)
+        return report
+
+    # -- mode and lifecycle -----------------------------------------------
+    def activate_localization_mode(self):
+        """Track against the map without changing it."""
+        self.tracker.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        self.tracker.only_tracking = False
+
+    def reset(self):
+        """Drop every map and restart, rebuilt from the constructor's
+        arguments (the rig, the IMU calibration and the device survive).
+        The trajectory log survives too, its poses frozen at their
+        retro-corrected values. Queued frames and backend stages are
+        settled and the mapper actor and helper threads stopped first."""
+        self._freeze_traj_rel()  # the old store's uids die with it
+        self._stop_threads()
+        traj, traj_rel = self.trajectory, self._traj_rel
+        self.__init__(**self._ctor_args)
+        self.trajectory = traj
+        self._traj_rel = traj_rel
+
+    def reset_active_map(self):
+        """Clear only the active map's keyframes and points; the atlas's
+        other maps survive."""
+        self.flush()
+        st = self.store
+        with st.lock:
+            for k in st.kfs_of_map(st.active_map):
+                st.remove_keyframe(int(k))
+            pts = st.points_of_map(st.active_map)
+            st.remove_points(pts[st.pt_mask[pts]])
+        self.tracker.reset_state()
 
     # -- image scaling ----------------------------------------------------
     def _gray_to_device(self, img: np.ndarray) -> torch.Tensor:
@@ -801,16 +855,69 @@ class System:
         for entry in self._backend_q:
             entry["snap"] = (snap, len(self.loops_closed))
 
-    def shutdown(self):
-        """Finish the session: settle every queued frame and stage, stop the
-        mapper actor and the helper threads."""
-        self.flush()
+    def _stop_threads(self):
+        """Stop the mapper actor and the helper threads."""
         if self.actor is not None:
             self.actor.shutdown()
         for pool in (self._backend_pool, self.tracker._fetch_pool):
             if pool is not None:
                 pool.shutdown()
         self._backend_pool = self.tracker._fetch_pool = None
+
+    def shutdown(self, save_map_path: str | None = None,
+                 save_dense_path: str | None = None):
+        """Finish the session: settle every queued frame and stage, stop the
+        mapper actor and the helper threads, then optionally save the atlas
+        (with the vocabulary) and the dense volume."""
+        self.flush()
+        self._stop_threads()
+        if save_map_path:
+            serialization.save_atlas(save_map_path, self.store,
+                                     self.kfdb.voc if self.kfdb else None)
+        if save_dense_path and self.dense_mapper is not None:
+            serialization.save_dense(save_dense_path,
+                                     self.dense_mapper.volume)
+
+    def load_map(self, path: str, freeze: bool = True,
+                 force_relocalization: bool = True,
+                 dense_path: str | None = None):
+        """Reuse a saved atlas: it replaces the current store in the
+        tracker, the mapper and the loop closer, the keyframe database is
+        rebuilt over it, and frame numbering carries on after it. With
+        ``freeze`` the loaded keyframes stay fixed in every later
+        optimization and are never culled, so the session only extends the
+        map. The tracker starts in ``RELOCALIZE_IN_LOADED_MAP`` (it never
+        initializes a fresh map), or ``LOST`` without
+        ``force_relocalization``. ``dense_path`` loads a saved volume onto
+        the System's device."""
+        expected = self.kfdb.voc if self.config.vocabulary_path else None
+        self._freeze_traj_rel()  # the old store's uids die with it
+        store, voc = serialization.load_atlas(path, expected_vocab=expected)
+        store.ensure_uids()
+        if freeze:
+            store.kf_fixed[store.kf_mask] = True
+        self.store = store
+        if voc is not None and self.kfdb.voc is None:
+            self.kfdb.voc = voc
+        self.kfdb.store = store
+        self.kfdb.rebuild()
+        self.tracker.store = store
+        self.tracker._tbl_cache = None
+        self.local_mapper.store = store
+        if self.loop_closer is not None:
+            self.loop_closer.store = store
+        if dense_path and self.dense_mapper is not None:
+            dm = self.dense_mapper
+            dm.volume = serialization.load_dense(dense_path, self.cam,
+                                                 device=self.device)
+            dm.mesher = IncrementalMesher(dm.volume)
+        live = np.nonzero(store.kf_mask)[0]
+        if len(live):
+            self.tracker.frame_id = int(store.kf_frame_id[live].max()) + 1
+        self.tracker.state = (tracking.RELOCALIZE_IN_LOADED_MAP
+                              if force_relocalization else tracking.LOST)
+        self.tracker.ref_kf = int(live[-1]) if len(live) else -1
+        self.tracker.last_kp_pt_id = None
 
     def retro_trajectory(self):
         """(ts, R_cw, t_cw) per frame, reconstructed through the current
@@ -844,6 +951,38 @@ class System:
                 np.ascontiguousarray(Rwc))).numpy()  # (w, x, y, z)
             rows.append([ts, *twc, q[1], q[2], q[3], q[0]])
         return np.asarray(rows)
+
+    def _freeze_traj_rel(self):
+        """Bake the retro-corrected poses into absolute entries, before the
+        store is replaced or reset (its uids would dangle, or collide with
+        the new store's)."""
+        frozen = self.retro_trajectory()
+        self.trajectory = [(ts, R, t) for ts, R, t in frozen]
+        self._traj_rel = [(ts, -1, R, t) for ts, R, t in frozen]
+
+    def save_trajectory_tum(self, path: str):
+        np.savetxt(path, self.trajectory_tum(), fmt="%.6f")
+
+    def save_trajectory_kitti(self, path: str):
+        """Flattened 3x4 [R_wc | t_wc] per frame."""
+        traj_io.write_kitti(path, self.retro_trajectory())
+
+    def save_trajectory_euroc(self, path: str):
+        traj_io.write_euroc(path, self.retro_trajectory())
+
+    def keyframe_trajectory(self):
+        """(ts, R_cw, t_cw) of the live keyframes, by timestamp."""
+        st = self.store
+        live = np.nonzero(st.kf_mask)[0]
+        order = live[np.argsort(st.kf_timestamp[live])]
+        return [(float(st.kf_timestamp[k]), st.kf_R[k].copy(),
+                 st.kf_t[k].copy()) for k in order]
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        traj_io.write_tum(path, self.keyframe_trajectory())
+
+    def save_keyframe_trajectory_euroc(self, path: str):
+        traj_io.write_euroc(path, self.keyframe_trajectory())
 
     def map_statistics(self):
         return {

@@ -82,6 +82,9 @@ NO_IMAGES_YET = 0
 NOT_INITIALIZED = 1
 OK = 2
 LOST = 3
+# tracking against a loaded (reused) map: relocalize in it before anything
+# else, never initialize a fresh one (System.load_map)
+RELOCALIZE_IN_LOADED_MAP = 4
 RECENTLY_LOST = 5
 
 
@@ -497,7 +500,9 @@ class Tracker:
             # queued frames are outstanding while the state left OK: finish
             # them first
             self.resolve_batch(force=True)
-        if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
+        if self.state == RELOCALIZE_IN_LOADED_MAP:
+            res = self._relocalize(fr, timestamp)
+        elif self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
             res = (self._initialize_mono(fr, timestamp)
                    if self.sensor == "mono"
                    else self._initialize_depth(fr, timestamp, fl))

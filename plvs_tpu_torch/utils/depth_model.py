@@ -33,3 +33,13 @@ def sigma_z_min_over_sigma_z(z: torch.Tensor, a: float = SIGMA_A,
     s_min = sigma_z(torch.tensor(z_min, dtype=z.dtype, device=z.device),
                     a, b, z0)
     return torch.clamp(s_min / sigma_z(z, a, b, z0), 0.0, 1.0)
+
+
+def depth_inv_sigma2(z: torch.Tensor, sigma_z_factor: float = 6.0,
+                     a: float = SIGMA_A, b: float = SIGMA_B,
+                     z0: float = Z0) -> torch.Tensor:
+    """Information weight 1/sigma^2 for a depth / disparity residual, the
+    modeled noise inflated by ``sigma_z_factor`` (``Depth.sigmaZfactor``:
+    a larger factor weakens the depth terms)."""
+    s = sigma_z_factor * sigma_z(z, a, b, z0)
+    return 1.0 / torch.clamp(torch.square(s), min=1e-12)

@@ -59,3 +59,13 @@ class Stopwatch:
                       "total_ms": float(a.sum() * 1e3),
                       "count": len(a)}
         return out
+
+    def report(self) -> str:
+        """Per-stage table: mean, median and std ms and the count."""
+        lines = [f"{'stage':<28}{'mean ms':>10}{'median':>10}{'std':>10}{'n':>7}"]
+        for k, s in sorted(self.stats().items()):
+            lines.append(
+                f"{k:<28}{s['mean_ms']:>10.2f}{s['median_ms']:>10.2f}"
+                f"{s['std_ms']:>10.2f}{s['count']:>7}"
+            )
+        return "\n".join(lines)

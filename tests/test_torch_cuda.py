@@ -24,7 +24,9 @@ ESDF's jump flooding, each on the card against the CPU. Slice 10: the
 per-level ORB path, the two-view reconstruction, the PnP RANSAC and the
 plane-homography RANSAC (from the same samples), each on the card against
 the CPU, K1 at the monocular path's [512] x [1024] and the template's
-[345] x [1024], and a monocular System on the card.
+[345] x [1024], and a monocular System on the card. Slice 11: an atlas
+and a dense volume saved on the CPU, loaded by a System on the card, which
+relocalizes in the loaded map as the CPU System does.
 """
 
 import math
@@ -1104,3 +1106,71 @@ def test_mono_system_on_cuda(dev):
     assert states[0] == 1 and all(s_ == 2 for s_ in states[1:]), states
     assert sum(system.local_mapper.new_points_log) > 0
     assert hamming.launches > 12
+
+
+@pytest.fixture(scope="module")
+def saved_cpu_session(tmp_path_factory):
+    """A 24-frame RGB-D session on the CPU (320x240, 512 features, dense
+    mapping at 5 cm), its atlas and dense volume saved by shutdown().
+    Module-scoped fixtures are set up before ``dev``, so this one skips on
+    its own without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cam = cameras.pinhole(300.0, 300.0, 160.0, 120.0, width=320, height=240,
+                          bf=24.0)
+    cfg = dict(num_features=512, n_levels=4, max_kf=64, max_pts=16384,
+               local_ba=False, loop_closing=False, dense_mapping=True,
+               dense_voxel_size=0.05)
+    scene = synthetic.SyntheticRGBD(cam, wall_z=3.0, seed=3)
+    system = System(cam, SystemConfig(**cfg), device="cpu")
+    for ts, g, d, _, _ in scene.sequence(
+            poses=synthetic.default_trajectory(24)):
+        system.track_rgbd(g, d, ts)
+    tmp = tmp_path_factory.mktemp("reuse")
+    atlas, dense = str(tmp / "atlas.npz"), str(tmp / "dense.npz")
+    system.shutdown(save_map_path=atlas, save_dense_path=dense)
+    return cam, cfg, scene, atlas, dense, system.dense_mapper.volume
+
+
+def test_load_map_relocalizes_on_cuda(dev, saved_cpu_session):
+    """A System on the card loads the CPU session's atlas, starts in
+    RELOCALIZE_IN_LOADED_MAP, and relocalizes (BoW candidates, K1 matches,
+    SE3 RANSAC) on the same replayed frames as a CPU System, its frozen
+    keyframes unmoved; load_dense puts the volume on the card."""
+    from plvs_tpu_torch.slam.tracking import RELOCALIZE_IN_LOADED_MAP
+
+    cam, cfg, scene, atlas, dense, vol = saved_cpu_session
+    poses = synthetic.default_trajectory(24)
+    states = {}
+    for device in ("cpu", "cuda"):
+        system = System(cam, SystemConfig(**cfg), device=device)
+        system.load_map(atlas, dense_path=dense)
+        assert system.tracker.state == RELOCALIZE_IN_LOADED_MAP
+        frozen = np.nonzero(system.store.kf_fixed)[0]
+        R0 = system.store.kf_R[frozen].copy()
+        hamming.launches = 0
+        states[device] = []
+        for i in range(10, 16):
+            g, d = scene.render(*poses[i])
+            states[device].append(int(system.track_rgbd(g, d, i / 30.0)[0]))
+        np.testing.assert_array_equal(system.store.kf_R[frozen], R0)
+        assert system.store.n_maps == 1
+        v = system.dense_mapper.volume
+        assert v.device.type == device
+        n = vol.n_blocks
+        assert v.n_blocks >= n
+        if device == "cuda":
+            assert hamming.launches > 0
+    assert 2 in states["cuda"], states
+    assert states["cuda"] == states["cpu"]
+
+
+def test_load_dense_on_cuda_matches_the_saved_volume(dev, saved_cpu_session):
+    from plvs_tpu_torch.io import serialization
+
+    cam, _, _, _, dense, vol = saved_cpu_session
+    v = serialization.load_dense(dense, cam, device="cuda")
+    n = vol.n_blocks
+    assert v.device.type == "cuda" and v.n_blocks == n
+    for f in ("block_coords", "tsdf", "weight", "color"):
+        np.testing.assert_array_equal(getattr(v, f)[:n], getattr(vol, f)[:n])

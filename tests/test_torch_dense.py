@@ -34,6 +34,15 @@ VOXEL = 0.04
 N_WARM = 3   # frames the JAX volume integrates before it is carried across
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small CPU ops: one intra-op thread, as tests/test_torch_ba.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _frames(n):
     tex = tsyn.make_structured_texture(1024, rng=np.random.default_rng(7))
     scene = tsyn.SyntheticRGBD(tcam.pinhole(*CAM_ARGS, **CAM_KW), wall_z=3.0,

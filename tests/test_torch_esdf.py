@@ -19,6 +19,15 @@ CAM_ARGS = (100.0, 100.0, 40.0, 30.0)
 CAM_KW = dict(width=80, height=60)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small CPU ops: one intra-op thread, as tests/test_torch_ba.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("shape,n_seeds,steps", [
     ((24, 20, 16), 12, 0), ((9, 31, 5), 3, 0), ((17, 17, 17), 60, 0),
     ((16, 8, 12), 5, 2)])

@@ -25,6 +25,15 @@ from plvs_tpu_torch.io import synthetic as tsyn
 N_LEVELS, SCALE, N_FEAT = 4, 1.2, 512
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small CPU ops: one intra-op thread, as tests/test_torch_ba.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def gray():
     """A quantized 320x240 frame of the structured-panel scene."""

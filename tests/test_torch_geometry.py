@@ -17,6 +17,15 @@ from plvs_tpu_torch.geometry import lie as tlie
 TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small CPU ops: one intra-op thread, as tests/test_torch_ba.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(a, b, tol=TOL, rel=0.0):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=tol, rtol=rel)
 

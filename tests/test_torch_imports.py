@@ -59,6 +59,10 @@ def test_the_walk_covers_the_port():
     for mod in ("solvers/two_view.py", "solvers/pnp.py",
                 "solvers/autodiff.py", "slam/map_objects.py"):
         assert f"plvs_tpu_torch/{mod}" in names, mod
+    for mod in ("io/trajectory.py", "io/serialization.py", "io/datasets.py",
+                "io/benchmark.py", "slam/settings.py", "utils/logging.py",
+                "run_slam.py"):
+        assert f"plvs_tpu_torch/{mod}" in names, mod
     assert len(names) > 30
     for src in ("import jax.numpy as jnp", "from plvs_tpu.ops import stereo",
                 "import importlib\nimportlib.import_module('jax')",

@@ -19,6 +19,15 @@ from plvs_tpu_torch.ops import cc_labels, hamming
 from plvs_tpu_torch.slam import tracking
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small CPU ops: one intra-op thread, as tests/test_torch_ba.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _words(rng, n, fill=None):
     if fill is not None:
         return np.full((n, 8), fill, np.uint32)

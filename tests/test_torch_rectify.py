@@ -35,6 +35,15 @@ RIGS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small CPU ops: one intra-op thread, as tests/test_torch_ba.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cams(name):
     (kl, pl, kwl), (kr, pr, kwr), base, yaw = RIGS[name]
     mk = dict(width=320, height=240)

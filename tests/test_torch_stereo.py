@@ -32,6 +32,15 @@ FLAGS = dict(num_features=512, n_levels=4, max_kf=64, max_pts=16384,
              dense_mesh_every=1, pipelined=False)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small CPU ops: one intra-op thread, as tests/test_torch_ba.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _shifted_pair(rng, h, w, d, true_d):
     base = rng.uniform(0, 255, (h, w + 2 * d)).astype(np.float32)
     return base[:, d:w + d], base[:, d + true_d:w + d + true_d]

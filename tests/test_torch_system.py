@@ -24,6 +24,15 @@ FLAGS = dict(num_features=512, n_levels=4, max_kf=64, max_pts=16384,
              pipelined=False, depth_upload_decimation=2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small CPU ops: one intra-op thread, as tests/test_torch_ba.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _frames():
     tex = tsyn.make_structured_texture(1024, rng=np.random.default_rng(7))
     scene = tsyn.SyntheticRGBD(tcam.pinhole(*CAM_ARGS, **CAM_KW), wall_z=3.0,

@@ -42,6 +42,15 @@ _STATE = ("state", "R", "t", "vel_R", "vel_t", "last_kp_pt_id", "ref_kf",
           "local_lines_cap", "only_tracking")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small CPU ops: one intra-op thread, as tests/test_torch_ba.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _to_torch(x):
     """JAX NamedTuple -> the port's NamedTuple of CPU tensors (descriptor
     words uint32 -> their int32 bit patterns)."""
