@@ -129,7 +129,21 @@ before the first frame, OK from JAX's first OK frame, the median
 camera-centre error within JAX's + 1 cm, one map, every loaded keyframe
 pose bit-equal; then ``run_slam.main(["--synthetic", "--frames", "8",
 "--device", "cuda", ...])`` must print its ATE and write a trajectory and
-an atlas that ``load_atlas`` reads. After each of phases 2-15, K1 is held
+an atlas that ``load_atlas`` reads. Phase 16 drives slice 12's viewers,
+AR, ROS bridges and demos: the HTTP ``LiveViewer`` serves phase 2's System
+(the page, ``/state.json`` held to the store, ``/mesh.json``, then pause,
+resume, save — the atlas loads —, localization and mapping) and phase 3's
+dense System (``/mesh.json`` has triangles); ``draw_frame`` on the last
+frame, ``keyframe_frusta`` (8 segments a keyframe), ``render_map_png``
+(False without matplotlib), ``ar.detect_plane`` on phase 2's live points
+(the wall's normal within 1 degree, JAX's inlier share, its ms and
+dispatched operations) and ``render_ar_frame``; the ``RgbdSlamBridge`` over
+frames 0-19 of phase 2's sweep as mono8 and 16UC1 millimetre messages
+(every frame OK, phase 2's ATE bound, pose messages on the camera centres,
+the viewer serving it meanwhile) and the ``MonoSlamBridge`` on the same
+images (states against JAX's bridge); then ``demo_ar`` (40 frames) and
+``demo_inseg`` (its default 40) on the card, held to the JAX demos of the
+same arguments (``scripts/reference_demos.py``). After each of phases 2-16, K1 is held
 exact against its plain version at every shape that phase launched and no
 earlier phase had checked. Each phase prints
 its wall seconds (``phase N: wall``); the run keeps well inside its
@@ -148,6 +162,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -386,6 +401,40 @@ REF_REUSE = {"state_before": 4, "first_ok": 18, "n_ok": 12,
              "loaded_keyframes": 4}
 REUSE_REPLAY = (18, 30)
 REUSE_ERR_BOUND_M = REF_REUSE["median_centre_err_m"] + 0.01
+# JAX package's figures for phase 16 (CPU runs of JAX_PLATFORMS=cpu python
+# scripts/reference_demos.py --part ar|inseg|bridge|plane, 28 (with
+# --ar-frames 40), 78, 146 and 116 s). AR demo (demo_ar --synthetic
+# --frames 40, cut from its default 60 to keep phase 16 near 60 s of wall:
+# the first card run of 60 frames took 23.1 s): the plane locks at frame 0
+# with 462 inliers, origin (0.000128, 0.003945, 3.0), 8 frames composited
+# (12 of 60). Segmentation demo (demo_inseg --synthetic --frames
+# 40): 32 of 40 frames OK, 104,841 surface voxels, 1 segment of 98,223
+# (the 8 frames not OK are the reference's behaviour too). The bridges on
+# frames 0-19 of phase 2's sweep as mono8 + 16UC1 millimetre messages:
+# RGB-D every frame OK, ATE 0.002495 m; monocular (phase 13's flags, no
+# loop closing) NOT_INITIALIZED at frame 0, OK from frame 1. The plane of
+# phase 2's 40-frame map: 2,486 points, all inliers, normal 0.0685 degrees
+# from the wall's. Phase 16 holds the port to: the AR lock frame +-2, its
+# inliers within 5% and origin within 1 cm, the frames composited equal;
+# the segmentation demo's frames tracked +-2, surface voxels and the
+# largest segment within 10%, segments +-1; the RGB-D bridge every frame
+# OK within phase 2's ATE bound (its depth is quantised to whole
+# millimetres, so it is not phase 2's run bit for bit); the monocular
+# bridge NOT_INITIALIZED at frame 0 and OK from JAX's first OK frame +-2 on
+# (JAX's two-view samples come from jax.random, the port's from a torch
+# generator: phase 13's tolerance); the plane within 1 degree of the wall's
+# normal with at least JAX's inlier share - 2%.
+REF_AR = {"lock_frame": 0, "inliers": 462,
+          "origin": (0.000127829, 0.0039447937, 3.0000002), "composited": 8}
+N_AR_FRAMES = 40
+REF_INSEG = {"tracked": 32, "surface_voxels": 104841, "segments": 1,
+             "largest_segment": 98223}
+N_INSEG_FRAMES = 40
+N_BRIDGE_FRAMES = 20
+REF_BRIDGE = {"rgbd_ate_m": 0.002494553687926449, "mono_first_ok": 1}
+REF_PLANE = {"points": 2486, "angle_deg": 0.06852804325551864,
+             "inlier_share": 1.0}
+PLANE_ANGLE_BOUND_DEG = 1.0
 
 # phases 2-4 and 6-7: bench.py's sweep (default_trajectory) in 40 frames,
 # three times the step of a 120-frame run, to keep the script well inside
@@ -767,6 +816,7 @@ def _phase3(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
                                   3)
     launches["k1_device_ms"] = _k1_report(3, "over the run", by_shape,
                                           k1_ms_at, brackets)[0]
+    launches["system"] = system  # phase 16's viewer serves its mesh
     return launches
 
 
@@ -2257,6 +2307,349 @@ def _phase15(torch, cam, system, frames, brackets, k1_ms_at: dict,
     return {"launches": launches, "k1_err": err, "k1_device_ms": dev_ms}
 
 
+class _Stamp:
+    def __init__(self, ts: float):
+        ns = int(round(ts * 1e9))
+        self.sec, self.nanosec = ns // 10 ** 9, ns % 10 ** 9
+
+
+class _Header:
+    def __init__(self, ts: float):
+        self.stamp, self.frame_id = _Stamp(ts), ""
+
+
+class _Image:
+    """A sensor_msgs/Image stand-in (the bridges read these fields)."""
+
+    def __init__(self, arr: np.ndarray, encoding: str, ts: float):
+        self.height, self.width = arr.shape
+        self.encoding = encoding
+        self.step = arr.shape[1] * arr.itemsize
+        self.data = arr.tobytes()
+        self.header = _Header(ts)
+
+
+def _mono8(gray: np.ndarray, ts: float) -> _Image:
+    """A camera's mono8 image of a float render (rounded to u8), as
+    scripts/reference_demos.py makes it."""
+    return _Image(np.clip(np.round(gray), 0, 255).astype(np.uint8), "mono8",
+                  ts)
+
+
+def _depth16(depth: np.ndarray, ts: float) -> _Image:
+    """A depth camera's 16UC1 image in whole millimetres."""
+    mm = np.clip(np.round(depth * 1000.0), 0, 65535).astype(np.uint16)
+    return _Image(mm, "16UC1", ts)
+
+
+def _http(port: int, path: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as r:
+        return r.read()
+
+
+def _quiet(fn, argv) -> str:
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    return buf.getvalue()
+
+
+def _phase16(torch, cam, system, frames, stereo_system, k1_ms_at: dict,
+             words) -> dict:
+    """Slice 12's path on the card: the live viewer serving phase 2's
+    System (``system``, after its ``frames``) and phase 3's dense stereo
+    System, the drawers and the AR plane on phase 2's map, the ROS bridges
+    on fake messages over frames 0-19 of phase 2's sweep, and the two demos
+    at their defaults. Returns the launches and K1's error at new shapes."""
+    import collections
+    import tempfile
+
+    from plvs_tpu_torch import demo_ar, demo_inseg
+    from plvs_tpu_torch.io import evaluation, serialization
+    from plvs_tpu_torch.ops import cc_labels, hamming, stereo
+    from plvs_tpu_torch.ros.nodes import MonoSlamBridge, RgbdSlamBridge
+    from plvs_tpu_torch.slam import System, SystemConfig
+    from plvs_tpu_torch.slam.tracking import NOT_INITIALIZED, OK
+    from plvs_tpu_torch.viz import ar, frame_drawer, map_drawer
+    from plvs_tpu_torch.viz.live_server import LiveViewer
+
+    k2_shapes = collections.Counter()
+    cc_min_labels = cc_labels.cc_min_labels
+
+    def k2_logged(init, *a, **kw):
+        if init.is_cuda:
+            k2_shapes[tuple(init.shape)] += 1
+        return cc_min_labels(init, *a, **kw)
+
+    cc_labels.cc_min_labels = k2_logged
+    hamming.launches = cc_labels.launches = stereo.launches = 0
+    hamming.shapes.clear()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    try:
+        # -- (a) the live viewer ---------------------------------------------
+        st = system.store
+        viewer = LiveViewer(system, port=0,
+                            save_path=os.path.join(tmp, "live.npz"))
+        dense_viewer = LiveViewer(stereo_system, port=0)
+        try:
+            page = _http(viewer.port, "/")
+            state = json.loads(_http(viewer.port, "/state.json"))
+            empty = json.loads(_http(viewer.port, "/mesh.json"))
+            verbs = {}
+            for op in ("pause", "resume", "save", "localization",
+                       "mapping"):
+                verbs[op] = _http(viewer.port, f"/cmd?op={op}")
+                if op == "pause":
+                    paused = json.loads(_http(viewer.port,
+                                              "/state.json"))["paused"]
+                elif op == "localization":
+                    loc = system.tracker.only_tracking
+            saved, _ = serialization.load_atlas(os.path.join(tmp,
+                                                             "live.npz"))
+            t1 = time.perf_counter()
+            mesh = json.loads(_http(dense_viewer.port, "/mesh.json"))
+            mesh_ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            viewer.close()
+            dense_viewer.close()
+        live = np.nonzero(st.pt_mask)[0]
+        sel = live[::len(live) // viewer.max_points + 1] \
+            if len(live) > viewer.max_points else live
+        covis = [np.round(np.concatenate(s_), 3).tolist()
+                 for s_ in map_drawer.covisibility_segments(st)[:2000]]
+        n_kf = int(st.kf_mask.sum())
+        print(f"phase 16: live viewer on phase 2's System: page "
+              f"{len(page)} B, state: {len(state['points'])} of {len(live)} "
+              f"points, {len(state['keyframes'])} keyframe centres, "
+              f"{len(state['trajectory'])} trajectory entries, frustum of "
+              f"{len(state['frustum'])}, {len(state['covis'])} covisibility "
+              f"segments, {len(state['lines'])} lines; verbs {verbs}; paused "
+              f"{paused}, localization {loc}; saved atlas loads with "
+              f"{saved.num_keyframes} keyframes; phase 3's dense System "
+              f"serves {len(mesh['tris']) // 18} triangles in {mesh_ms:.1f} "
+              "ms")
+        if "webgl" not in page.decode() or empty != {"tris": [], "wire": []}:
+            _fail("phase 16 viewer page or empty mesh payload")
+        if state["points"] != np.round(st.pt_xyz[sel], 3).tolist() or \
+                len(state["keyframes"]) != n_kf or \
+                len(state["trajectory"]) != len(frames) or \
+                len(state["frustum"]) != 12 or state["covis"] != covis:
+            _fail("phase 16 viewer state does not hold the store")
+        if any(v != b"ok" for v in verbs.values()) or not paused or \
+                not loc or system.tracker.only_tracking or \
+                saved.num_keyframes != n_kf:
+            _fail(f"phase 16 viewer verbs {verbs}")
+        if not mesh["tris"] or not np.isfinite(mesh["tris"]).all():
+            _fail("phase 16 /mesh.json of the dense System has no triangles")
+
+        # -- (b) the drawers and AR on phase 2's map ----------------------------
+        _, g_last, _, _, _ = frames[-1]
+        _, R_last, t_last = system.trajectory[-1]
+        fr = system.tracker.last_frame
+        kp_ok = fr.kp.mask.cpu().numpy()
+        kp_xy = fr.kp.xy.cpu().numpy()[kp_ok]
+        kp_trk = system.tracker.last_kp_pt_id[kp_ok] >= 0
+        kf = np.nonzero(st.kf_mask)[0][-1]
+        kl = st.kf_kl_mask[kf]
+        img = frame_drawer.draw_frame(
+            g_last, kp_xy=kp_xy, kp_tracked=kp_trk, kl_p0=st.kf_kl_sp[kf][kl],
+            kl_p1=st.kf_kl_ep[kf][kl], kl_tracked=st.kf_kl_line[kf][kl] >= 0,
+            state=int(system.tracker.state))
+        greens = int((img == frame_drawer.GREEN).all(-1).sum())
+        frusta = map_drawer.keyframe_frusta(st.kf_R, st.kf_t, st.kf_mask)
+        png = os.path.join(tmp, "map.png")
+        drawn = map_drawer.render_map_png(
+            png, st, traj=system.trajectory_tum()[:, 1:4])
+        pts = st.pt_xyz[st.pt_mask]
+        plane_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            plane = ar.detect_plane(pts, device="cuda")
+            torch.cuda.synchronize()
+            plane_ms.append((time.perf_counter() - t1) * 1e3)
+        plane_ops = _count_ops(torch, lambda: ar.detect_plane(pts,
+                                                              device="cuda"))
+        angle = float(np.degrees(np.arccos(min(1.0, abs(float(
+            plane.normal[2])) / float(np.linalg.norm(plane.normal))))))
+        share = plane.n_inliers / len(pts)
+        ar_img = ar.render_ar_frame(g_last, system.cam, R_last, t_last,
+                                    plane=plane, cube_size=0.3,
+                                    device="cuda")
+        cube_px = int(((ar_img[..., 1] == 255) & (ar_img[..., 0] == 0)).sum())
+        print(f"phase 16: draw_frame {img.shape}: {len(kp_xy)} keypoints "
+              f"({int(kp_trk.sum())} tracked), {int(kl.sum())} keylines, "
+              f"{greens} green pixels; {len(frusta)} frustum segments for "
+              f"{n_kf} keyframes; render_map_png "
+              + (f"wrote {os.path.getsize(png)} B" if drawn else
+                 "returned False (no matplotlib on this machine)"))
+        print(f"phase 16: AR plane on phase 2's {len(pts)} live points (JAX "
+              f"{REF_PLANE['points']}): normal "
+              f"{np.round(plane.normal, 6).tolist()}, {angle:.4f} degrees "
+              f"from the wall's (JAX {REF_PLANE['angle_deg']:.4f}, bound "
+              f"{PLANE_ANGLE_BOUND_DEG}), d {plane.d:.6f}, "
+              f"{plane.n_inliers} inliers = {share:.4f} of the points (JAX "
+              f"{REF_PLANE['inlier_share']:.4f}); detect_plane ms "
+              f"(synchronised) {[round(v, 3) for v in plane_ms]}, "
+              f"{plane_ops} dispatched operations; the AR frame's cube "
+              f"{cube_px} pixels")
+        if img.shape != (*g_last.shape, 3) or greens == 0:
+            _fail("phase 16 draw_frame drew no tracked feature")
+        if len(frusta) != 8 * n_kf:
+            _fail(f"phase 16 {len(frusta)} frustum segments for {n_kf} "
+                  "keyframes")
+        try:
+            import matplotlib  # noqa: F401
+            has_mpl = True
+        except ImportError:
+            has_mpl = False
+        if drawn != has_mpl or (drawn and os.path.getsize(png) < 1000):
+            _fail(f"phase 16 render_map_png gave {drawn}")
+        if angle > PLANE_ANGLE_BOUND_DEG or \
+                share < REF_PLANE["inlier_share"] - 0.02:
+            _fail(f"phase 16 AR plane {angle} degrees off, share {share}")
+        if cube_px < 20:
+            _fail("phase 16 render_ar_frame drew no cube")
+
+        # -- (c) the ROS bridges on fake messages -------------------------------
+        sweep = frames[:N_BRIDGE_FRAMES]
+        rgbd_sys = System(cam, system.config, device="cuda")
+        rgbd = RgbdSlamBridge(rgbd_sys)
+        bridge_view = LiveViewer(rgbd_sys, port=0)
+        served = []
+        ms = []
+        try:
+            for i, (ts, g, d, _, _) in enumerate(sweep):
+                m_rgb, m_d = _mono8(g, ts), _depth16(d, ts)
+                t1 = time.perf_counter()
+                first, second = ((rgbd.on_depth, m_d), (rgbd.on_rgb, m_rgb)) \
+                    if i % 2 else ((rgbd.on_rgb, m_rgb), (rgbd.on_depth, m_d))
+                if first[0](first[1]) is not None:
+                    _fail(f"phase 16 RGB-D bridge tracked half a pair at {i}")
+                out = second[0](second[1])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+                if out is None:
+                    _fail(f"phase 16 RGB-D bridge paired nothing at frame {i}")
+                if i % 5 == 4:
+                    served.append(len(json.loads(_http(
+                        bridge_view.port, "/state.json"))["trajectory"]))
+        finally:
+            bridge_view.close()
+        rgbd_sys.shutdown()
+        states = [s_ for _, s_, _ in rgbd.poses]
+        est = np.stack([[p["position"][k] for k in "xyz"]
+                        for _, _, p in rgbd.poses])
+        centres = np.stack([-R.T @ t for _, R, t in rgbd_sys.trajectory])
+        pose_err = float(np.abs(est - centres).max())
+        gt = np.stack([-R.T @ t for _, _, _, R, t in sweep])
+        ate = evaluation.ate_rmse(est, gt, align=True)
+        q_err = max(abs(float(np.linalg.norm([p["orientation"][k]
+                                              for k in "xyzw"])) - 1.0)
+                    for _, _, p in rgbd.poses)
+        mono = MonoSlamBridge(System(cam, SystemConfig(
+            num_features=1024, n_levels=8, scale=1.2, max_kf=64,
+            max_pts=16384, sensor="mono", max_kf_interval=5,
+            min_kf_inliers=25, local_ba=True, loop_closing=False,
+            pipelined=False), device="cuda"))
+        for ts, g, _, _, _ in sweep:
+            mono.on_image(_mono8(g, ts))
+        mono.system.shutdown()
+        m_states = [s_ for _, s_, _ in mono.poses]
+        m_first = next((i for i, s_ in enumerate(m_states) if s_ == OK), None)
+        print(f"phase 16: RGB-D bridge over frames 0-{N_BRIDGE_FRAMES - 1} "
+              f"(mono8 + 16UC1 mm): states {states}, ATE-RMSE {ate:.6f} m "
+              f"(JAX bridge {REF_BRIDGE['rgbd_ate_m']:.6f}, bound "
+              f"{ATE_BOUND_M:.6f}), pose messages within {pose_err:.2e} m "
+              f"of the camera centres, |q| - 1 within {q_err:.1e}; per pair "
+              f"ms p50 {np.percentile(ms[1:], 50):.2f}; the viewer served "
+              f"{served} trajectory entries during the run; mono bridge "
+              f"states {m_states} (JAX first OK at frame "
+              f"{REF_BRIDGE['mono_first_ok']})")
+        if not all(s_ == OK for s_ in states) or len(states) != len(sweep):
+            _fail(f"phase 16 RGB-D bridge states {states}")
+        if not np.isfinite(est).all() or ate > ATE_BOUND_M:
+            _fail(f"phase 16 RGB-D bridge ATE {ate} m over {ATE_BOUND_M}")
+        if pose_err > 1e-6 or q_err > 1e-5:
+            _fail(f"phase 16 pose messages off by {pose_err} m, |q| {q_err}")
+        if served != list(range(5, N_BRIDGE_FRAMES + 1, 5)):
+            _fail(f"phase 16 viewer served {served} during the bridge run")
+        if m_states[0] != NOT_INITIALIZED or m_first is None or \
+                abs(m_first - REF_BRIDGE["mono_first_ok"]) > 2 or \
+                not all(s_ == OK for s_ in m_states[m_first:]):
+            _fail(f"phase 16 mono bridge states {m_states}")
+
+        # -- (d) the demos -------------------------------------------------------
+        t1 = time.perf_counter()
+        out_ar = _quiet(demo_ar.main, [
+            "--synthetic", "--frames", str(N_AR_FRAMES), "--out",
+            os.path.join(tmp, "ar")])
+        ar_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out_seg = _quiet(demo_inseg.main, [
+            "--synthetic", "--frames", str(N_INSEG_FRAMES), "--out",
+            os.path.join(tmp, "seg")])
+        seg_s = time.perf_counter() - t1
+    finally:
+        cc_labels.cc_min_labels = cc_min_labels
+        tmp_dir.cleanup()
+    launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
+                "stereo_wta": stereo.launches}
+    mix = dict(hamming.shapes)
+    m = re.search(r"plane locked at frame (\d+): origin=\[([^\]]*)\], "
+                  r"inliers=(\d+)", out_ar)
+    n = re.search(r"AR demo: (\d+) composited", out_ar)
+    s = re.search(r"(\d+) frames tracked, (\d+) surface voxels, (\d+) "
+                  r"segments", out_seg)
+    sizes = [int(c) for c in re.findall(r"segment \d+: (\d+) voxels",
+                                        out_seg)]
+    print(f"phase 16: demo_ar --synthetic --frames {N_AR_FRAMES} on the card "
+          f"in {ar_s:.1f} s: {out_ar.strip()!r} (JAX: lock at frame "
+          f"{REF_AR['lock_frame']}, {REF_AR['inliers']} inliers, origin "
+          f"{REF_AR['origin']}, {REF_AR['composited']} composited)")
+    print(f"phase 16: demo_inseg --synthetic --frames {N_INSEG_FRAMES} on the "
+          f"card in {seg_s:.1f} s: {out_seg.strip()!r} (JAX: "
+          f"{REF_INSEG['tracked']} tracked, {REF_INSEG['surface_voxels']} "
+          f"voxels, {REF_INSEG['segments']} segment of "
+          f"{REF_INSEG['largest_segment']})")
+    print(f"phase 16: launches {launches}; K1 by Q x K: " + ", ".join(
+        f"{q}x{k} {c}" for (q, k), c in sorted(mix.items()))
+        + "; K2 by grid: " + ", ".join(
+        f"{h}x{w} {c}" for (h, w), c in sorted(k2_shapes.items())))
+    err = _hold_k1(torch, hamming, words, k1_ms_at, mix, 16)
+    if not m or abs(int(m.group(1)) - REF_AR["lock_frame"]) > 2:
+        _fail(f"phase 16 AR demo lock: {out_ar!r}")
+    if abs(int(m.group(3)) - REF_AR["inliers"]) > 0.05 * REF_AR["inliers"]:
+        _fail(f"phase 16 AR demo inliers {m.group(3)}")
+    origin = np.array(m.group(2).split(), float)
+    if np.abs(origin - REF_AR["origin"]).max() > 0.01:
+        _fail(f"phase 16 AR demo origin {origin}")
+    if not n or int(n.group(1)) != REF_AR["composited"]:
+        _fail(f"phase 16 AR demo composited: {out_ar!r}")
+    if not s or abs(int(s.group(1)) - REF_INSEG["tracked"]) > 2:
+        _fail(f"phase 16 segmentation demo tracked: {out_seg!r}")
+    for name, got, ref in (
+            ("surface voxels", int(s.group(2)), REF_INSEG["surface_voxels"]),
+            ("largest segment", max(sizes, default=0),
+             REF_INSEG["largest_segment"])):
+        if abs(got - ref) > 0.1 * ref:
+            _fail(f"phase 16 segmentation demo {name} {got}, JAX {ref}")
+    if abs(int(s.group(3)) - REF_INSEG["segments"]) > 1:
+        _fail(f"phase 16 segmentation demo segments {s.group(3)}")
+    if launches["hamming"] < N_AR_FRAMES + N_INSEG_FRAMES + 2 * N_BRIDGE_FRAMES:
+        _fail(f"phase 16 K1 launched {launches['hamming']} times")
+    if launches["cc_labels"] < 1 or launches["stereo_wta"] != 0:
+        _fail(f"phase 16 launches {launches}")
+    return {"launches": launches, "k1_err": err,
+            "plane_ms": float(np.median(plane_ms)), "plane_ops": plane_ops}
+
+
 def main() -> int:
     import torch
 
@@ -2576,17 +2969,20 @@ def main() -> int:
     run14 = timed(14, _phase14, torch, cam, k1_ms_at, words)
     run15 = timed(15, _phase15, torch, cam, system, frames, brackets,
                   k1_ms_at, words)
+    run16 = timed(16, _phase16, torch, cam, system, frames,
+                  launches3.pop("system"), k1_ms_at, words)
     launches5, launches6 = run5["launches"], run6["launches"]
     launches7, launches8 = run7["launches"], run8["launches"]
     launches9 = run9["launches"]
     later = {10: run10["launches"], 11: run11["launches"],
              12: run12["launches"], 13: run13["launches"],
-             14: run14["launches"], 15: run15["launches"]}
+             14: run14["launches"], 15: run15["launches"],
+             16: run16["launches"]}
     k1_err = max(k1_err, launches3["k1_err"], launches4["k1_err"],
                  run5["k1_err"], run6["k1_err"], run7["k1_err"],
                  run8["k1_err"], run9["k1_err"], run10["k1_err"],
                  run11["k1_err"], run12["k1_err"], run13["k1_err"],
-                 run14["k1_err"], run15["k1_err"])
+                 run14["k1_err"], run15["k1_err"], run16["k1_err"])
 
     kernels = [
         {"name": "hamming_matrix", "route": "cuda",

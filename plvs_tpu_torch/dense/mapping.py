@@ -15,12 +15,19 @@ or the interleaved backend's helper threads); ``insert_keyframe_rgbd`` /
 keyframe's raw depth and color stay on the device (``DenseKeyFrame``), and
 ``rebuild`` resets both volumes and the mesher and re-integrates every
 stored keyframe (and its stored global labels) at its corrected pose.
+
+``lock`` (an ``RLock``) serialises the mapper's state changes: each
+insert, each stage of ``insert_stages`` between its yields, ``rebuild``,
+the clouds and ``mesh_incremental``. A viewer thread that meshes while
+the tracking or mapper thread integrates and meshes (``viz/live_server``)
+takes the same lock; the JAX package's mapper has none.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -92,6 +99,7 @@ class DenseMapper:
         self._touched_ctx = None
         if self.use_segmentation:
             self.label_map = GlobalLabelMap()
+        self.lock = threading.RLock()
 
     def _scope(self, name: str):
         if self.stopwatch is None:
@@ -183,14 +191,15 @@ class DenseMapper:
         """Insert one RGB-D keyframe (``color`` [H, W, 3] or gray [H, W]);
         when a mesh is due the touched blocks are settled first, so the mesh
         reflects this keyframe."""
-        self._insert_rgbd_core(kf_id, color, depth, Rcw, tcw)
-        if self._mesh_due():
-            self.mesher.stopwatch = self.stopwatch
-            with self._scope("dense.mesh"):
-                self.settle_touched()
-                self.mesher.update(assemble=False,
-                                   budget=self.mesh_budget or None)
-            self.remesh_counts.append(self.mesher.last_n_remeshed)
+        with self.lock:
+            self._insert_rgbd_core(kf_id, color, depth, Rcw, tcw)
+            if self._mesh_due():
+                self.mesher.stopwatch = self.stopwatch
+                with self._scope("dense.mesh"):
+                    self.settle_touched()
+                    self.mesher.update(assemble=False,
+                                       budget=self.mesh_budget or None)
+                self.remesh_counts.append(self.mesher.last_n_remeshed)
 
     def insert_keyframe_stereo(self, kf_id: int, left, right, Rcw: np.ndarray,
                                tcw: np.ndarray, max_disp: int = 64):
@@ -215,32 +224,35 @@ class DenseMapper:
         stage, so the mesh lags the integration by one keyframe; then the
         padded-field gather is dispatched, and the triangles are made a
         stage later. ``kind`` "rgbd": (a, b) = (color, depth); "stereo":
-        (a, b) = (left, right) gray images."""
-        if kind == "rgbd":
+        (a, b) = (left, right) gray images. Each stage holds ``lock``,
+        released at the yields."""
+        if kind != "rgbd":
+            a, b = self._stereo_depth(a, b)
+        with self.lock:
             self._insert_rgbd_core(kf_id, a, b, Rcw, tcw)
-        else:
-            self._insert_rgbd_core(kf_id, *self._stereo_depth(a, b), Rcw,
-                                   tcw)
-        mesh_due = self._mesh_due()
-        prev_ctx = self._touched_ctx
-        self._touched_ctx = (self.volume.dispatch_touched(submit)
-                             if mesh_due else None)
+            mesh_due = self._mesh_due()
+            prev_ctx = self._touched_ctx
+            self._touched_ctx = (self.volume.dispatch_touched(submit)
+                                 if mesh_due else None)
         yield None if prev_ctx is None else prev_ctx[1]
-        if not mesh_due:
-            # still fold the previous keyframe's changed blocks into the
-            # block versions, or the mesher would never re-mesh them
-            self.volume.apply_touched(prev_ctx)
-            return
-        self.mesher.stopwatch = self.stopwatch
-        with self._scope("dense.mesh"):
-            self.volume.apply_touched(prev_ctx)
-            ctx = self.mesher.update_begin(budget=self.mesh_budget or None)
+        with self.lock:
+            if not mesh_due:
+                # still fold the previous keyframe's changed blocks into
+                # the block versions, or the mesher would never re-mesh them
+                self.volume.apply_touched(prev_ctx)
+                return
+            self.mesher.stopwatch = self.stopwatch
+            with self._scope("dense.mesh"):
+                self.volume.apply_touched(prev_ctx)
+                ctx = self.mesher.update_begin(
+                    budget=self.mesh_budget or None)
         fut = submit(ctx["out"]) if ctx is not None else None
         yield fut
-        with self._scope("dense.mesh"):
-            fetched = None if fut is None else fut.result()
-            self.mesher.update_finish(ctx, fetched)
-        self.remesh_counts.append(self.mesher.last_n_remeshed)
+        with self.lock:
+            with self._scope("dense.mesh"):
+                fetched = None if fut is None else fut.result()
+                self.mesher.update_finish(ctx, fetched)
+            self.remesh_counts.append(self.mesher.last_n_remeshed)
 
     def insert_keyframe(self, kind: str, kf_id: int, a, b, Rcw: np.ndarray,
                         tcw: np.ndarray):
@@ -255,37 +267,40 @@ class DenseMapper:
         for a keyframe that no longer exists. The stored raw depth is
         filtered again as the JAX package does (unquantized), and the
         stored global label images are fused again."""
-        # the lagged changed-block fetch refers to the volume being reset
-        self._touched_ctx = None
-        self.volume.reset()
-        if self.coarse is not None:
-            self.coarse.reset()
-        self.mesher.invalidate()
-        for dkf in self.keyframes:
-            Rcw, tcw = get_pose(dkf.kf_id)
-            if Rcw is None:
-                continue
-            d = dkf.depth
-            if self.filter_depth:
-                d = processing.filter_depth(d)
-            self._integrate_split(d, dkf.color, Rcw, tcw,
-                                  alloc_depth=to_host(dkf.depth))
-            if self.use_segmentation and dkf.kf_id in self.labels:
-                self.volume.integrate_labels(dkf.depth,
-                                             self.labels[dkf.kf_id], Rcw, tcw)
+        with self.lock:
+            # the lagged changed-block fetch refers to the volume being reset
+            self._touched_ctx = None
+            self.volume.reset()
+            if self.coarse is not None:
+                self.coarse.reset()
+            self.mesher.invalidate()
+            for dkf in self.keyframes:
+                Rcw, tcw = get_pose(dkf.kf_id)
+                if Rcw is None:
+                    continue
+                d = dkf.depth
+                if self.filter_depth:
+                    d = processing.filter_depth(d)
+                self._integrate_split(d, dkf.color, Rcw, tcw,
+                                      alloc_depth=to_host(dkf.depth))
+                if self.use_segmentation and dkf.kf_id in self.labels:
+                    self.volume.integrate_labels(
+                        dkf.depth, self.labels[dkf.kf_id], Rcw, tcw)
 
     def cloud(self):
         """Occupied voxel centroids and colors of both volumes."""
-        pts, cols = self.volume.occupied_cloud()
-        if self.coarse is not None:
-            p2, c2 = self.coarse.occupied_cloud()
-            pts = np.concatenate([pts, p2])
-            cols = np.concatenate([cols, c2])
+        with self.lock:
+            pts, cols = self.volume.occupied_cloud()
+            if self.coarse is not None:
+                p2, c2 = self.coarse.occupied_cloud()
+                pts = np.concatenate([pts, p2])
+                cols = np.concatenate([cols, c2])
         return pts, cols
 
     def segment_cloud(self):
         """Surface voxels + global segment labels of the fine volume."""
-        return self.volume.segmented_cloud()
+        with self.lock:
+            return self.volume.segmented_cloud()
 
     def mesh(self):
         """Full marching-tetrahedra mesh of both volumes."""
@@ -304,14 +319,17 @@ class DenseMapper:
         """Fold the one-keyframe-lagged changed-block fetch into the
         volume's dirty state (before a mesh that must reflect the last
         integrate too)."""
-        ctx, self._touched_ctx = self._touched_ctx, None
-        if ctx is not None:
-            self.volume.apply_touched(ctx)
+        with self.lock:
+            ctx, self._touched_ctx = self._touched_ctx, None
+            if ctx is not None:
+                self.volume.apply_touched(ctx)
 
     def mesh_incremental(self):
-        """Changed-blocks-only mesh update (see IncrementalMesher)."""
-        self.settle_touched()
-        return self.mesher.update()
+        """Changed-blocks-only mesh update (see IncrementalMesher), under
+        ``lock``: callable from a viewer thread while frames are tracked."""
+        with self.lock:
+            self.settle_touched()
+            return self.mesher.update()
 
     def save_ply(self, path: str):
         self.volume.save_ply(path)

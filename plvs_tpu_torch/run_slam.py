@@ -13,6 +13,11 @@ A settings file's ``SparseMapping.*`` keys reuse a saved atlas
 (``reuseMap``, ``freezeMap``, ``forceRelocalization``) and save the map at
 the end (``saveMap``), as ``--save-map`` does. ``main`` ends the session
 with ``System.shutdown``, which saves the maps.
+
+``--live-viewer PORT`` serves the map to a browser while the run goes on
+(``viz/live_server.py``; its pause verb holds the RGB-D feed), and
+``--viz MAP_PNG`` renders the final map, with the dense cloud and the
+settings' ``GlObjects`` overlays, to a PNG (nothing without matplotlib).
 """
 
 from __future__ import annotations
@@ -23,8 +28,6 @@ import os
 import time
 
 import numpy as np
-
-_VIEWER = "the map viewers are not ported yet (ROADMAP.md queue 1 item 7e)"
 
 
 def main(argv=None):
@@ -53,7 +56,7 @@ def main(argv=None):
     ap.add_argument("--save-map", type=str, default=None)
     ap.add_argument("--save-dense", type=str, default=None)
     ap.add_argument("--viz", type=str, default=None, metavar="MAP_PNG",
-                    help="render the final map to a PNG (not ported yet)")
+                    help="render the final map to a PNG")
     ap.add_argument("--dense", action="store_true")
     ap.add_argument("--lines", action="store_true")
     ap.add_argument("--async-mapping", action="store_true",
@@ -64,10 +67,9 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true", help="--device cpu")
     ap.add_argument("--timing", action="store_true")
     ap.add_argument("--live-viewer", type=int, default=None, metavar="PORT",
-                    help="serve a live map view (not ported yet)")
+                    help="serve a live map view on 127.0.0.1:PORT (0: any "
+                         "free port)")
     args = ap.parse_args(argv)
-    if args.viz is not None or args.live_viewer is not None:
-        raise NotImplementedError(_VIEWER)
     device = "cpu" if args.cpu else args.device
 
     from .geometry import cameras
@@ -111,6 +113,20 @@ def main(argv=None):
         print(f"reusing sparse map {st.map_filename}")
     if args.localization:
         system.activate_localization_mode()
+
+    viewer = None
+    if args.live_viewer is not None:
+        from .viz.live_server import LiveViewer
+
+        viewer = LiveViewer(system, port=args.live_viewer)
+        print(f"live viewer: http://127.0.0.1:{viewer.port}/")
+        _orig_track = system.track_rgbd
+
+        def _gated(*a, **kw):
+            viewer.wait_if_paused()
+            return _orig_track(*a, **kw)
+
+        system.track_rgbd = _gated
 
     if args.synthetic:
         scene = synthetic.SyntheticRGBD(cam, wall_z=3.0, seed=0)
@@ -198,6 +214,28 @@ def main(argv=None):
         print(f"map saved to {save_map_path}")
     if save_dense_path:
         print(f"dense map saved to {save_dense_path}")
+    if args.viz:
+        from .viz import map_drawer
+
+        dense = None
+        if system.dense_mapper is not None:
+            dense = system.dense_mapper.cloud()[0]
+        if args.settings:
+            # static PLY overlays declared in the settings file (reference:
+            # GlObjects.* block, drawn by the viewer src/Viewer.cc:813)
+            from .viz.gl_objects import GlObjectList
+
+            gl = GlObjectList()
+            if gl.load(args.settings):
+                overlay = gl.all_world_points()[0]
+                dense = (overlay if dense is None
+                         else np.concatenate([dense, overlay], 0))
+        if map_drawer.render_map_png(args.viz, system.store,
+                                     dense_cloud=dense,
+                                     traj=system.trajectory_tum()[:, 1:4]):
+            print(f"map rendered to {args.viz}")
+    if viewer is not None:
+        viewer.close()
     if args.timing:
         print(sw.report())
 

@@ -26,7 +26,11 @@ plane-homography RANSAC (from the same samples), each on the card against
 the CPU, K1 at the monocular path's [512] x [1024] and the template's
 [345] x [1024], and a monocular System on the card. Slice 11: an atlas
 and a dense volume saved on the CPU, loaded by a System on the card, which
-relocalizes in the loaded map as the CPU System does.
+relocalizes in the loaded map as the CPU System does. Slice 12: the AR
+layer's plane RANSAC on the card against the CPU from the same samples,
+the live viewer's ``state()`` and ``mesh_state()`` over a dense System on
+the card (meshing from another thread while frames are tracked), and the
+AR demo on its default device.
 """
 
 import math
@@ -1174,3 +1178,104 @@ def test_load_dense_on_cuda_matches_the_saved_volume(dev, saved_cpu_session):
     assert v.device.type == "cuda" and v.n_blocks == n
     for f in ("block_coords", "tsdf", "weight", "color"):
         np.testing.assert_array_equal(getattr(v, f)[:n], getattr(vol, f)[:n])
+
+
+def test_plane_ransac_on_cuda_matches_cpu(dev):
+    """The AR plane RANSAC from the same samples: the same inlier mask and
+    count, normal and d within 1e-5 (cuBLAS and the CPU sum the 3-term
+    dots in their own order; no point of this cloud lies within 1e-5 of
+    the 2 cm gate); ``detect_plane`` on the card finds the plane."""
+    from plvs_tpu_torch.viz import ar
+
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([
+        np.stack([rng.uniform(-1, 1, 400), rng.uniform(-1, 1, 400),
+                  0.5 + rng.normal(0, 0.003, 400)], -1),
+        rng.uniform(-1, 1, (80, 3))]).astype(np.float32)
+    valid = rng.random(len(pts)) > 0.1
+    gen = torch.Generator().manual_seed(3)
+    samples = ar.draw_samples(len(pts), gen)
+    out = {}
+    for d in ("cpu", "cuda"):
+        out[d] = ar._plane_ransac(torch.from_numpy(pts).to(d),
+                                  torch.from_numpy(valid).to(d),
+                                  samples.to(d))
+    (cn, cd, ci, ck), (gn, gd, gi, gk) = out["cpu"], out["cuda"]
+    assert torch.equal(gi.cpu(), ci) and int(gk) == int(ck) > 300
+    np.testing.assert_allclose(gn.cpu().numpy(), cn.numpy(), atol=1e-5)
+    assert abs(float(gd) - float(cd)) < 1e-5
+    # detect_plane counts every point valid: the 400 plane points, and any
+    # outlier that falls in the 2 cm band
+    plane = ar.detect_plane(pts, device="cuda")
+    in_band = int((np.abs(pts[:, 2] - 0.5) < 0.02).sum())
+    assert abs(abs(float(plane.normal[2])) - 1.0) < 1e-3
+    assert abs(plane.n_inliers - in_band) <= 0.02 * in_band
+
+
+def test_live_viewer_over_a_cuda_system(dev, tmp_path):
+    """A dense RGB-D System on the card meshing every keyframe while
+    another thread calls ``mesh_state()``: no error; then ``state()`` is
+    held to the store and ``/mesh.json`` serves triangles."""
+    import json
+    import threading
+    import urllib.request
+
+    from plvs_tpu_torch.viz.live_server import LiveViewer
+    from plvs_tpu_torch.viz.map_drawer import covisibility_segments
+
+    cam = cameras.pinhole(300.0, 300.0, 160.0, 120.0, width=320, height=240,
+                          bf=24.0)
+    system = System(cam, SystemConfig(
+        num_features=512, n_levels=4, max_kf=64, max_pts=16384,
+        local_ba=False, loop_closing=False, dense_mapping=True,
+        dense_mesh_every=1), device="cuda")
+    viewer = LiveViewer(system, save_path=str(tmp_path / "m.npz"))
+    stop, errors, calls = threading.Event(), [], []
+
+    def hammer():
+        while not stop.is_set():
+            try:
+                calls.append(len(viewer.mesh_state()["tris"]))
+            except Exception as e:  # recorded, then the test fails on it
+                errors.append(e)
+                return
+            stop.wait(0.02)
+
+    th = threading.Thread(target=hammer)
+    th.start()
+    try:
+        scene = synthetic.SyntheticRGBD(cam, wall_z=3.0, seed=0)
+        states = [int(system.track_rgbd(g, d, ts)[0])
+                  for ts, g, d, _, _ in scene.sequence(n_frames=8)]
+    finally:
+        stop.set()
+        th.join()
+    try:
+        assert not errors, errors
+        assert all(s_ == 2 for s_ in states), states
+        state = viewer.state()
+        st = system.store
+        assert len(state["keyframes"]) == int(st.kf_mask.sum())
+        assert len(state["trajectory"]) == 8 and len(state["frustum"]) == 12
+        live = np.nonzero(st.pt_mask)[0]
+        if len(live) > 4000:
+            live = live[::len(live) // 4000 + 1]
+        np.testing.assert_array_equal(state["points"],
+                                      np.round(st.pt_xyz[live], 3))
+        assert state["covis"] == [np.round(np.concatenate(s_), 3).tolist()
+                                  for s_ in covisibility_segments(st)]
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{viewer.port}/mesh.json", timeout=60) as r:
+            mesh = json.loads(r.read())
+        assert len(mesh["tris"]) > 0 and np.isfinite(mesh["tris"]).all()
+    finally:
+        viewer.close()
+
+
+def test_demo_ar_on_cuda(dev, tmp_path, capsys):
+    """The AR demo on its default device: the plane locks on the wall."""
+    from plvs_tpu_torch import demo_ar
+
+    demo_ar.main(["--synthetic", "--frames", "6", "--out", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "plane locked at frame 0" in out and "(plane locked)" in out

@@ -63,6 +63,12 @@ def test_the_walk_covers_the_port():
                 "io/benchmark.py", "slam/settings.py", "utils/logging.py",
                 "run_slam.py"):
         assert f"plvs_tpu_torch/{mod}" in names, mod
+    for mod in ("viz/__init__.py", "viz/frame_drawer.py", "viz/map_drawer.py",
+                "viz/rerun_logger.py", "viz/gl_objects.py", "viz/ar.py",
+                "viz/live_server.py", "ros/__init__.py", "ros/conversions.py",
+                "ros/nodes.py", "ros/ros1_nodes.py", "demo_ar.py",
+                "demo_inseg.py"):
+        assert f"plvs_tpu_torch/{mod}" in names, mod
     assert len(names) > 30
     for src in ("import jax.numpy as jnp", "from plvs_tpu.ops import stereo",
                 "import importlib\nimportlib.import_module('jax')",

@@ -603,14 +603,47 @@ def test_cli_synthetic_run_matches_jax(tmp_path, capsys):
     np.testing.assert_allclose(tt[:, 1:4], tj[:, 1:4], atol=0.01)
 
 
-def test_cli_refuses_the_viewers_and_defaults_to_cuda(tmp_path):
-    from plvs_tpu_torch import run_slam as trun
+def test_cli_refuses_the_viewers_and_defaults_to_cuda(tmp_path, capsys,
+                                                      monkeypatch):
+    """The viewers are in: ``--viz`` renders the final map to a PNG (as the
+    JAX runner, nothing without matplotlib), and ``--live-viewer 0``
+    serves the map while the run goes on (a probe reads /state.json
+    through the socket at each frame's pause gate). Without CUDA the
+    default device raises."""
+    import urllib.request
 
-    with pytest.raises(NotImplementedError, match="item 7e"):
-        trun.main(["--synthetic", "--viz", str(tmp_path / "m.png"),
-                   "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 7e"):
-        trun.main(["--synthetic", "--live-viewer", "0", "--device", "cpu"])
+    from plvs_tpu_torch import run_slam as trun
+    from plvs_tpu_torch.viz import live_server
+
+    png = tmp_path / "m.png"
+    trun.main(["--synthetic", "--frames", "3", "--viz", str(png),
+               "--device", "cpu", "--out", str(tmp_path / "a.txt")])
+    out = capsys.readouterr().out
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        assert not png.exists() and "map rendered" not in out
+    else:
+        assert f"map rendered to {png}" in out
+        assert png.stat().st_size > 1000
+
+    seen = []
+
+    class Probe(live_server.LiveViewer):
+        def wait_if_paused(self, timeout=None):
+            super().wait_if_paused(timeout)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{self.port}/state.json",
+                    timeout=30) as r:
+                seen.append(json.loads(r.read()))
+
+    monkeypatch.setattr(live_server, "LiveViewer", Probe)
+    trun.main(["--synthetic", "--frames", "3", "--live-viewer", "0",
+               "--device", "cpu", "--out", str(tmp_path / "b.txt")])
+    out = capsys.readouterr().out
+    assert "live viewer: http://127.0.0.1:" in out
+    assert [len(s["trajectory"]) for s in seen] == [0, 1, 2]
+    assert seen[-1]["stats"]["keyframes"] >= 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             trun.main(["--synthetic", "--frames", "1"])
