@@ -141,13 +141,35 @@ dispatched operations) and ``render_ar_frame``; the ``RgbdSlamBridge`` over
 frames 0-19 of phase 2's sweep as mono8 and 16UC1 millimetre messages
 (every frame OK, phase 2's ATE bound, pose messages on the camera centres,
 the viewer serving it meanwhile) and the ``MonoSlamBridge`` on the same
-images (states against JAX's bridge); then ``demo_ar`` (40 frames) and
-``demo_inseg`` (its default 40) on the card, held to the JAX demos of the
-same arguments (``scripts/reference_demos.py``). After each of phases 2-16, K1 is held
+images (states against JAX's bridge); then ``demo_ar`` and ``demo_inseg``
+(30 frames each) on the card, held to the JAX demos of the
+same arguments (``scripts/reference_demos.py``). Phase 17 drives slice 13's
+multi-device backend on the one card through meshes of shards on cuda:0
+(``parallel.sharded_ba.make_mesh(n, device="cuda:0")``), each solve held
+to its unsharded counterpart on the card: __graft_entry__.dryrun_multichip's
+global BA at its full size (256 keyframes, 49,152 landmarks, 524,288
+observations, 2 LM x 8 CG) over 4 shards with the landmarks partitioned
+(the cost finite, falling, within 1e-3 of the unsharded ``scatter_free=
+False`` solve); a 64-pose ring pose graph over 4 shards (the cost
+falling, the drift halved, the poses within 1e-3 of the unsharded
+solve); ``ShardedTSDFVolume`` over 4 shards at 640x480 and 2 cm against
+``TSDFVolume`` over 3 frames (tsdf and weight within 1e-5); a System with
+``sharded_backend=True`` (``System.mesh`` None on one card, as the JAX
+package's on one device) given a 2-shard mesh on its local mapper and
+loop closer: 10 frames of phase 2's sweep with local BA and loop closing
+(K1 launches counted), its global BA sharded against the unsharded
+dispatch, and one sharded loop correction pulling a 5 cm drift back;
+dryrun_multichip's product-path map (6 keyframes, 512 landmarks) through
+``global_ba()`` with and without the mesh; ``distributed_check`` as two
+gloo ranks on cuda:0 (both ranks' costs equal and within 1e-3 of the
+in-process solve); and ``bundle_adjust(schur_direct=True)`` on a window
+of phase 4's size (16 keyframes, 1,536 landmarks, 96 lines: finite,
+non-increasing, within 1e-3 of the same solve on the CPU), printing each
+solve's CUDA-event ms beside its counterpart's. After each of phases 2-17, K1 is held
 exact against its plain version at every shape that phase launched and no
 earlier phase had checked. Each phase prints
 its wall seconds (``phase N: wall``); the run keeps well inside its
-1,200 s limit only because phases 2-4 and 6-11 run fewer frames than
+1,200 s limit only because phases 2-4, 6-12 and 16 run fewer frames than
 their scenes allow (the constants below say how many).
 
 It prints one ``{"kernels": [...]}`` line and ends with one
@@ -323,27 +345,29 @@ RECT_ATE_BOUND_M = max(1.5 * REF_RECT["ate_rmse_m"],
 N_RECT_FRAMES = 40
 # JAX package's figures on phase 12's run: demo_inseg.py's configuration
 # at bench width over phase 5's room (no depth noise) on
-# orbit_loop_trajectory(60, radius=0.6, laps=0.5) (CPU run of
-# JAX_PLATFORMS=cpu python scripts/reference_inseg.py, 72 s: all OK, 14
-# keyframes, no loop; the segmentation links the room's inside corners, so
-# one segment holds confidence >= 2), then the library check on the stored
-# keyframes at their final poses (61 s). The port is held to the ATE bound
+# orbit_loop_trajectory(40, radius=0.6, laps=0.5) (CPU run of
+# JAX_PLATFORMS=cpu python scripts/reference_inseg.py --frames 40, 70 s:
+# all OK, 12 keyframes, no loop; the segmentation links the room's inside
+# corners, so one segment holds confidence >= 2), then the library check
+# on the stored keyframes at their final poses (78 s). The half orbit ran
+# in 60 frames until the script's phases passed 600 s on one H100 (787 s
+# with phase 17 on a slow host). The port is held to the ATE bound
 # below, the segmented surface voxels and the segments at confidence >= 2
 # within +-25% of these, one segmentation per dense keyframe; the
 # library's fine and coarse occupied voxels, triangles and carved voxels
 # within +-25%, the ESDF's median at 1000 wall points within one voxel and
 # the mesh normals' median cosine to the walls over 0.9.
-REF_SEG = {"ate_rmse_m": 0.01740683263875813, "first_ok": 1,
-           "map": {"keyframes": 14, "points": 3584}, "loops": 0,
-           "segmented_voxels": 325471, "labelled_voxels": 299653,
+REF_SEG = {"ate_rmse_m": 0.016202351340185234, "first_ok": 1,
+           "map": {"keyframes": 12, "points": 3800}, "loops": 0,
+           "segmented_voxels": 323048, "labelled_voxels": 296418,
            "segments_conf2": 1, "next_global": 7,
-           "library": {"fine_occupied": 197837, "coarse_occupied": 4623,
-                       "triangles": 369874, "carved_voxels": 287402,
-                       "esdf_grid": [223, 157, 317], "esdf_median_m": 0.0,
-                       "normals_median_cos": 0.9999128580093384}}
+           "library": {"fine_occupied": 178174, "coarse_occupied": 4383,
+                       "triangles": 318586, "carved_voxels": 353193,
+                       "esdf_grid": [228, 157, 317], "esdf_median_m": 0.0,
+                       "normals_median_cos": 0.9998856782913208}}
 SEG_ATE_BOUND_M = max(1.5 * REF_SEG["ate_rmse_m"],
                       REF_SEG["ate_rmse_m"] + 0.01)
-N_SEG_FRAMES = 60
+N_SEG_FRAMES = 40
 
 # JAX package's figures on phase 13's run: System(sensor="mono") at
 # bench.py's camera and widths over tests/test_slam_e2e.py TestMonocular's
@@ -403,13 +427,13 @@ REUSE_REPLAY = (18, 30)
 REUSE_ERR_BOUND_M = REF_REUSE["median_centre_err_m"] + 0.01
 # JAX package's figures for phase 16 (CPU runs of JAX_PLATFORMS=cpu python
 # scripts/reference_demos.py --part ar|inseg|bridge|plane, 28 (with
-# --ar-frames 40), 78, 146 and 116 s). AR demo (demo_ar --synthetic
-# --frames 40, cut from its default 60 to keep phase 16 near 60 s of wall:
-# the first card run of 60 frames took 23.1 s): the plane locks at frame 0
-# with 462 inliers, origin (0.000128, 0.003945, 3.0), 8 frames composited
-# (12 of 60). Segmentation demo (demo_inseg --synthetic --frames
-# 40): 32 of 40 frames OK, 104,841 surface voxels, 1 segment of 98,223
-# (the 8 frames not OK are the reference's behaviour too). The bridges on
+# --ar-frames 30), 48 (with --inseg-frames 30), 146 and 116 s). AR demo
+# (demo_ar --synthetic --frames 30, cut from its default 60: 40 until the
+# script's phases passed 600 s on one H100): the plane locks at
+# frame 0 with 462 inliers, origin (0.000128, 0.003945, 3.0), 6 frames
+# composited. Segmentation demo (demo_inseg --synthetic --frames 30, 40
+# until then): 24 of 30 frames OK, 99,456 surface voxels, 1 segment of
+# 91,402 (the 6 frames not OK are the reference's behaviour too). The bridges on
 # frames 0-19 of phase 2's sweep as mono8 + 16UC1 millimetre messages:
 # RGB-D every frame OK, ATE 0.002495 m; monocular (phase 13's flags, no
 # loop closing) NOT_INITIALIZED at frame 0, OK from frame 1. The plane of
@@ -425,11 +449,11 @@ REUSE_ERR_BOUND_M = REF_REUSE["median_centre_err_m"] + 0.01
 # generator: phase 13's tolerance); the plane within 1 degree of the wall's
 # normal with at least JAX's inlier share - 2%.
 REF_AR = {"lock_frame": 0, "inliers": 462,
-          "origin": (0.000127829, 0.0039447937, 3.0000002), "composited": 8}
-N_AR_FRAMES = 40
-REF_INSEG = {"tracked": 32, "surface_voxels": 104841, "segments": 1,
-             "largest_segment": 98223}
-N_INSEG_FRAMES = 40
+          "origin": (0.000127829, 0.0039447937, 3.0000002), "composited": 6}
+N_AR_FRAMES = 30
+REF_INSEG = {"tracked": 24, "surface_voxels": 99456, "segments": 1,
+             "largest_segment": 91402}
+N_INSEG_FRAMES = 30
 N_BRIDGE_FRAMES = 20
 REF_BRIDGE = {"rgbd_ate_m": 0.002494553687926449, "mono_first_ok": 1}
 REF_PLANE = {"points": 2486, "angle_deg": 0.06852804325551864,
@@ -2650,6 +2674,466 @@ def _phase16(torch, cam, system, frames, stereo_system, k1_ms_at: dict,
             "plane_ms": float(np.median(plane_ms)), "plane_ops": plane_ops}
 
 
+# phase 17: the multi-device backend through meshes of shards on one card
+N_SHARDED_FRAMES = 10
+# __graft_entry__.dryrun_multichip's problem: a mid-size sequence's map
+DRYRUN_KPM = (256, 49152, 524288)
+# a window of phase 4's size for the direct Schur solve: 8 free and 8
+# fixed keyframes, 1,536 landmarks, 96 lines
+SCHUR_WINDOW = (16, 1536, 96)
+
+
+def _event_ms(torch, fn):
+    """(fn's result, CUDA-event ms from before its first launch to after
+    its last; host gaps between launches included: these solves are
+    eager)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _dryrun_problem(torch, ba, cameras, dev):
+    """dryrun_multichip's problem (K keyframes 2 m along x, P landmarks
+    3-12 m ahead with 1 cm of noise, M observations with 0.5 px of noise;
+    its numpy draws in its order) on ``dev``, and its camera."""
+    cam = cameras.pinhole(300.0, 300.0, 160.0, 120.0, width=320, height=240,
+                          bf=24.0)
+    rng = np.random.default_rng(0)
+    K, P, M = DRYRUN_KPM
+    pts = np.stack([rng.uniform(-4, 4, P), rng.uniform(-2.5, 2.5, P),
+                    rng.uniform(3, 12, P)], -1).astype(np.float32)
+    R = np.tile(np.eye(3, dtype=np.float32), (K, 1, 1))
+    t = np.zeros((K, 3), np.float32)
+    t[:, 0] = np.linspace(0, -2.0, K)
+    obs_cam = torch.from_numpy(rng.integers(0, K, M)).to(dev)
+    obs_pt = torch.from_numpy(rng.integers(0, P, M)).to(dev)
+    Rd, td, pd = (torch.from_numpy(a).to(dev) for a in (R, t, pts))
+    Xc = (Rd[obs_cam] @ pd[obs_pt][..., None])[..., 0] + td[obs_cam]
+    uv = cameras.project(cam, Xc) + torch.from_numpy(
+        rng.normal(0, 0.5, (M, 2)).astype(np.float32)).to(dev)
+    noisy = pts + rng.normal(0, 0.01, pts.shape).astype(np.float32)
+    fixed = torch.zeros((K,), dtype=torch.bool, device=dev)
+    fixed[0] = True
+    prob = ba.make_problem(
+        Rd, td, fixed, torch.from_numpy(noisy).to(dev), obs_cam, obs_pt,
+        torch.cat([uv, -torch.ones((M, 1), device=dev)], -1),
+        torch.ones((M,), device=dev),
+        torch.ones((M,), dtype=torch.bool, device=dev))
+    return cam, prob
+
+
+def _dryrun_map(st, cam) -> np.ndarray:
+    """dryrun_multichip's product-path map written into store ``st``: 512
+    landmarks 2.5-6 m ahead (1 cm of noise on their positions) seen by 6
+    keyframes 5 cm apart, each keyframe's keypoints the exact projections
+    of the landmarks it sees; returns the landmark ids."""
+    rng = np.random.default_rng(1)
+    pts_w = np.stack([rng.uniform(-2, 2, 512), rng.uniform(-1.5, 1.5, 512),
+                      rng.uniform(2.5, 6, 512)], -1).astype(np.float32)
+    pids = st.alloc_pts(512)
+    st.pt_mask[pids] = True
+    st.pt_xyz[pids] = pts_w + rng.normal(0, 0.01, (512, 3)).astype(
+        np.float32)
+    fx, fy, cx, cy = (float(v) for v in cam.params[:4])
+    for i in range(6):
+        kf = st.alloc_kf()
+        st.kf_mask[kf] = True
+        st.kf_R[kf] = np.eye(3, dtype=np.float32)
+        st.kf_t[kf] = np.asarray([-0.05 * i, 0, 0], np.float32)
+        Xc = pts_w @ st.kf_R[kf].T + st.kf_t[kf]
+        uv = np.stack([fx * Xc[:, 0] / Xc[:, 2] + cx,
+                       fy * Xc[:, 1] / Xc[:, 2] + cy], -1).astype(np.float32)
+        ok = (Xc[:, 2] > 0.1) & (uv[:, 0] >= 0) & (uv[:, 0] < cam.width) \
+            & (uv[:, 1] >= 0) & (uv[:, 1] < cam.height)
+        sel = np.nonzero(ok)[0][: st.n_kp]
+        st.kf_kp_uvr[kf, : len(sel), :2] = uv[sel]
+        st.kf_kp_uvr[kf, : len(sel), 2] = -1.0
+        st.kf_kp_mask[kf, : len(sel)] = True
+        st.pt_ref_kf[pids[sel]] = np.where(
+            st.pt_ref_kf[pids[sel]] < 0, kf, st.pt_ref_kf[pids[sel]])
+        st.add_observations(kf, pids[sel], np.arange(len(sel)))
+    return pids
+
+
+def _ring_graph(torch, pose_graph, lie, dev, K=64):
+    """A ring of K poses 0.3 m apart turning once around y, chain edges,
+    skip-2 edges and the loop edge measured from the truth, the vertices'
+    translations drifted by N(0, 5 cm) (vertex 0 fixed); the truth's
+    translations."""
+    rng = np.random.default_rng(17)
+    R_gt, t_gt = [np.eye(3, dtype=np.float32)], [np.zeros(3, np.float32)]
+    step = lie.so3_exp(torch.tensor([0.0, 2 * np.pi / K, 0.0])).numpy()
+    for _ in range(1, K):
+        R_gt.append((step @ R_gt[-1]).astype(np.float32))
+        t_gt.append((t_gt[-1] + np.array([0.3, 0, 0])).astype(np.float32))
+    R_gt, t_gt = np.stack(R_gt), np.stack(t_gt)
+    pairs = ([(k, k + 1) for k in range(K - 1)]
+             + [(k, k + 2) for k in range(K - 2)] + [(0, K - 1)])
+    pairs_d = torch.tensor(pairs, device=dev)
+    Rg, tg = torch.from_numpy(R_gt).to(dev), torch.from_numpy(t_gt).to(dev)
+    eR, et, es = pose_graph.make_edges_from_poses(
+        Rg, tg, torch.ones((K,), device=dev), pairs_d)
+    t0 = t_gt + rng.normal(0, 0.05, t_gt.shape).astype(np.float32)
+    t0[0] = t_gt[0]
+    fixed = torch.zeros((K,), dtype=torch.bool, device=dev)
+    fixed[0] = True
+    E = len(pairs)
+    prob = pose_graph.PoseGraphProblem(
+        Rg, torch.from_numpy(t0).to(dev), torch.ones((K,), device=dev),
+        fixed, pairs_d[:, 0], pairs_d[:, 1], eR, et, es,
+        torch.ones((E,), device=dev),
+        torch.ones((E,), dtype=torch.bool, device=dev))
+    return prob, t_gt
+
+
+def _schur_window(torch, ba, dev):
+    """A stereo window with lines at phase 4's size (SCHUR_WINDOW): poses
+    perturbed by 0.01 rad / 3 cm, landmarks by 5 cm, 0.3 px of noise, each
+    landmark seen at least twice; the first half of the keyframes fixed,
+    as the local BA fixes the window's outside observers."""
+    rng = np.random.default_rng(4)
+    K, P, L = SCHUR_WINDOW
+
+    def so3(s):
+        w = rng.normal(size=3) * s
+        th = np.linalg.norm(w)
+        k = w / max(th, 1e-12)
+        Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        return (np.eye(3) + np.sin(th) * Kx
+                + (1 - np.cos(th)) * Kx @ Kx).astype(np.float32)
+
+    X = np.stack([rng.uniform(-3, 3, P), rng.uniform(-2, 2, P),
+                  rng.uniform(2.0, 6.0, P)], -1).astype(np.float32)
+    R_gt = np.stack([so3(0.05) for _ in range(K)])
+    t_gt = (np.stack([[-0.15 * k, 0, 0] for k in range(K)])
+            + rng.normal(size=(K, 3)) * 0.02).astype(np.float32)
+    oc, op, ouvr = [], [], []
+    for k in range(K):
+        Xc = X @ R_gt[k].T + t_gt[k]
+        uv = Xc[:, :2] / Xc[:, 2:] * 520.0 + np.array([320.0, 240.0])
+        vis = ((uv[:, 0] >= 0) & (uv[:, 0] < 640) & (uv[:, 1] >= 0)
+               & (uv[:, 1] < 480) & (Xc[:, 2] > 0.5))
+        idx = np.nonzero(vis & (rng.uniform(size=P) > 0.5))[0]
+        u = uv[idx] + rng.normal(size=(len(idx), 2)) * 0.3
+        uR = u[:, 0] - 40.0 / Xc[idx, 2] + rng.normal(size=len(idx)) * 0.3
+        oc.append(np.full(len(idx), k))
+        op.append(idx)
+        ouvr.append(np.concatenate([u, uR[:, None]], -1))
+    oc, op = np.concatenate(oc), np.concatenate(op)
+    ouvr = np.concatenate(ouvr).astype(np.float32)
+    seen = np.bincount(op, minlength=P) >= 2
+    keep = seen[op]
+    oc, op, ouvr = oc[keep], op[keep], ouvr[keep]
+    Xs = np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L),
+                   rng.uniform(2.0, 5.0, L)], -1).astype(np.float32)
+    d = rng.normal(size=(L, 3))
+    d[:, 2] = np.sign(d[:, 2]) * (1.0 + np.abs(d[:, 2]))
+    Xe = (Xs + 0.8 * d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(
+        np.float32)
+    lc, ll, nld, dep = [], [], [], []
+    for k in range(K):
+        for j in range(L):
+            ends = [(R_gt[k] @ Xw + t_gt[k]) for Xw in (Xs[j], Xe[j])]
+            if min(e[2] for e in ends) < 0.5:
+                continue
+            sp, ep = (e[:2] / e[2] * 520.0 + [320.0, 240.0] for e in ends)
+            dv = ep - sp
+            n = np.array([-dv[1], dv[0]]) / np.linalg.norm(dv)
+            lc.append(k)
+            ll.append(j)
+            nld.append([n[0], n[1], -n @ sp + rng.normal() * 0.3])
+            dep.append([ends[0][2], ends[1][2]])
+    R0, t0 = R_gt.copy(), t_gt.copy()
+    for k in range(K // 2, K):
+        R0[k] = so3(0.01) @ R_gt[k]
+        t0[k] = t_gt[k] + rng.normal(size=3) * 0.03
+    M, Ml = len(oc), len(lc)
+
+    def put(a, dtype=None):
+        return torch.as_tensor(np.asarray(a, dtype), device=dev)
+
+    return ba.make_problem(
+        put(R0), put(t0), put(np.arange(K) < K // 2),
+        put(X + rng.normal(size=X.shape) * 0.05, np.float32), put(oc),
+        put(op), put(ouvr), put(np.ones(M), np.float32),
+        put(np.ones(M, bool)), point_mask=put(seen),
+        lines_Xs=put(Xs + rng.normal(size=Xs.shape) * 0.03, np.float32),
+        lines_Xe=put(Xe + rng.normal(size=Xe.shape) * 0.03, np.float32),
+        line_mask=put(np.ones(L, bool)), lobs_cam=put(lc), lobs_line=put(ll),
+        lobs_nld=put(nld, np.float32),
+        lobs_inv_sigma2=put(np.ones(Ml), np.float32),
+        lobs_mask=put(np.ones(Ml, bool)), lobs_depth=put(dep, np.float32))
+
+
+def _phase17(torch, cam, frames, k1_ms_at: dict, words) -> dict:
+    """Slice 13's multi-device backend on one card, each solve through a
+    mesh of shards on cuda:0 (``make_mesh(n, device="cuda:0")``) and held
+    to the unsharded solve on the card: dryrun_multichip's global BA at
+    full size (4 shards, landmarks partitioned), the ring pose graph and
+    the block-sharded TSDF at bench width, a System with
+    ``sharded_backend`` (no mesh on one card; 2 shards set on its local
+    mapper and loop closer: tracking, the product-path global BA, one loop
+    correction), the gloo check in two processes on the card, and the
+    direct Schur BA on a window of phase 4's size against the same solve
+    on the CPU. Returns the launches and the largest K1 error at new
+    shapes."""
+    from plvs_tpu_torch.dense.tsdf import TSDFVolume
+    from plvs_tpu_torch.geometry import cameras, lie
+    from plvs_tpu_torch.ops import cc_labels, hamming, stereo
+    from plvs_tpu_torch.parallel import (distributed_check, sharded_ba,
+                                         sharded_pose_graph, sharded_tsdf)
+    from plvs_tpu_torch.slam import System, SystemConfig
+    from plvs_tpu_torch.slam.tracking import OK
+    from plvs_tpu_torch.solvers import ba, pose_graph
+
+    dev = torch.device("cuda")
+    if torch.backends.cuda.matmul.allow_tf32:
+        _fail("phase 17: TF32 matmuls are on; the Schur assembly needs "
+              "float32 products")
+
+    # -- the dryrun's global BA at full size, 4 shards on cuda:0 ----------
+    dcam, prob = _dryrun_problem(torch, ba, cameras, dev)
+    mesh4 = sharded_ba.make_mesh(4, device="cuda:0")
+
+    def sharded():
+        return sharded_ba.bundle_adjust_sharded(
+            dcam, prob, mesh4, num_iters=2, cg_iters=8, shard_points=True)
+
+    def unsharded():
+        return ba.bundle_adjust(dcam, prob, num_iters=2, cg_iters=8,
+                                scatter_free=False)
+
+    sharded(), unsharded()                         # warm-up
+    out_s, ms_s = _event_ms(torch, sharded)
+    out_1, ms_1 = _event_ms(torch, unsharded)
+    c_s, c0 = float(out_s[-1]["cost"]), float(out_s[-1]["cost0"])
+    c_1 = float(out_1[-1]["cost"])
+    K, P, M = DRYRUN_KPM
+    print(f"phase 17: dryrun global BA K {K} P {P} M {M}, 2 LM x 8 CG: "
+          f"4 shards on cuda:0 with the landmarks partitioned: cost "
+          f"{c0:.3f} -> {c_s:.3f} in {ms_s:.2f} ms; unsharded "
+          f"(scatter_free=False) {c_1:.3f} in {ms_1:.2f} ms; relative "
+          f"difference {abs(c_s - c_1) / c_1:.2e}")
+    if not (math.isfinite(c_s) and c_s < c0):
+        _fail(f"phase 17 sharded BA cost {c0} -> {c_s}")
+    if not all(bool(torch.isfinite(o).all()) for o in out_s[:3]):
+        _fail("phase 17 sharded BA returned non-finite blocks")
+    if abs(c_s - c_1) > 1e-3 * c_1:
+        _fail(f"phase 17 sharded BA cost {c_s} against unsharded {c_1}")
+    del prob, out_s, out_1
+
+    # -- the ring pose graph and the block-sharded TSDF -------------------
+    ring, t_gt = _ring_graph(torch, pose_graph, lie, dev)
+
+    def ring_sharded():
+        return sharded_pose_graph.optimize_sharded(
+            ring, mesh4, num_iters=12, cg_iters=50, fix_scale=True)
+
+    def ring_one():
+        return pose_graph.optimize(ring, num_iters=12, cg_iters=50,
+                                   fix_scale=True)
+
+    ring_sharded(), ring_one()
+    (Rs, ts, _, pinfo), pg_ms = _event_ms(torch, ring_sharded)
+    (R1, t1, _, pinfo1), pg1_ms = _event_ms(torch, ring_one)
+    err0 = float(np.linalg.norm(ring.t.cpu().numpy() - t_gt, axis=-1).mean())
+    err1 = float(np.linalg.norm(ts.cpu().numpy() - t_gt, axis=-1).mean())
+    dpose = max(float((Rs - R1).abs().max()), float((ts - t1).abs().max()))
+    print(f"phase 17: ring pose graph ({ring.R.shape[0]} vertices, "
+          f"{ring.edge_i.shape[0]} edges, 12 LM x 50 CG, 4 shards): cost "
+          f"{float(pinfo['cost0']):.5f} -> {float(pinfo['cost']):.6f} in "
+          f"{pg_ms:.2f} ms (unsharded {float(pinfo1['cost']):.6f} in "
+          f"{pg1_ms:.2f} ms); mean position error {err0:.4f} -> {err1:.4f} "
+          f"m; poses within {dpose:.2e} of the unsharded solve")
+    if not (float(pinfo["cost"]) < float(pinfo["cost0"])
+            and err1 < 0.5 * err0 and dpose <= 1e-3):
+        _fail(f"phase 17 sharded pose graph: cost {pinfo}, error {err0} -> "
+              f"{err1}, {dpose} from the unsharded solve")
+
+    vol = TSDFVolume(cam, voxel_size=0.02, device="cuda")
+    svol = sharded_tsdf.ShardedTSDFVolume(mesh4, cam, voxel_size=0.02)
+    t_ms = {"sharded": [], "unsharded": []}
+    for _, g, d, R_gt, t_gt_ in frames[:3]:
+        for name, v in (("unsharded", vol), ("sharded", svol)):
+            _, ms = _event_ms(torch, lambda: v.integrate(d, g, R_gt, t_gt_))
+            t_ms[name].append(ms)
+    n = vol.n_blocks
+    d_t = float(np.abs(svol.tsdf[:n] - vol.tsdf[:n]).max())
+    d_w = float(np.abs(svol.weight[:n] - vol.weight[:n]).max())
+    print(f"phase 17: ShardedTSDFVolume (4 shards, 2 cm, 640x480): {n} "
+          f"blocks after 3 frames, integrate ms "
+          f"{[round(x, 3) for x in t_ms['sharded']]} against the unsharded "
+          f"volume's {[round(x, 3) for x in t_ms['unsharded']]}; tsdf within "
+          f"{d_t:.2e}, weight within {d_w:.2e}")
+    if svol.n_blocks != n or n == 0 or d_t > 1e-5 or d_w > 1e-5:
+        _fail(f"phase 17 sharded TSDF: {svol.n_blocks} / {n} blocks, tsdf "
+              f"{d_t}, weight {d_w}")
+    del vol, svol
+
+    # -- a System with sharded_backend on one card ------------------------
+    cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
+                       max_pts=65536, use_lines=False, local_ba=True,
+                       loop_closing=True, dense_mapping=False,
+                       sharded_backend=True, backend_fixed_shapes=True,
+                       max_kf_interval=3, depth_upload_decimation=2)
+    system = System(cam, cfg, device="cuda")
+    if torch.cuda.device_count() == 1 and system.mesh is not None:
+        _fail("phase 17: System.mesh is set on one card")
+    mesh2 = sharded_ba.make_mesh(2, device="cuda:0")
+    system.local_mapper.mesh = system.loop_closer.mesh = mesh2
+    hamming.launches = cc_labels.launches = stereo.launches = 0
+    hamming.shapes.clear()
+    states = []
+    for ts_, g, d, _, _ in frames[:N_SHARDED_FRAMES]:
+        states.append(int(system.track_rgbd(g, d, ts_)[0]))
+    torch.cuda.synchronize()
+    launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
+                "stereo_wta": stereo.launches}
+    st = system.store
+    lm = system.local_mapper
+    window = np.sort(st.kfs_of_map(st.active_map)).astype(np.int64)
+    ctx_one = lm._ba_dispatch(window, num_iters=10, cg_iters=30)
+    if ctx_one is None:
+        _fail(f"phase 17: {len(window)} keyframes gave no global BA problem")
+    c_one = float(ctx_one["info"]["cost"])
+    gba, gba_ms = _event_ms(torch, lm.global_ba)
+    print(f"phase 17: System(sharded_backend=True) on {torch.cuda.device_count()}"
+          f" card(s): mesh {system.mesh}; 2 shards on cuda:0 set on its local"
+          f" mapper and loop closer; {N_SHARDED_FRAMES} frames 640x480, states "
+          f"{states}, {st.num_keyframes} keyframes; global_ba over them: cost "
+          f"{gba['cost0']:.3f} -> {gba['cost']:.3f} in {gba_ms:.2f} ms "
+          f"(unsharded {c_one:.3f}); launches {launches}")
+    if not all(s == OK for s in states[1:]):
+        _fail(f"phase 17 tracking states {states}")
+    if not (math.isfinite(gba["cost"]) and gba["cost"] <= gba["cost0"]
+            and abs(gba["cost"] - c_one) <= 1e-3 * max(c_one, 1e-6)):
+        _fail(f"phase 17 sharded global BA {gba} against unsharded {c_one}")
+    if launches["hamming"] < N_SHARDED_FRAMES:
+        _fail(f"phase 17: K1 launched {launches['hamming']} times")
+    # one sharded loop correction: the last keyframe drifted by 5 cm, the
+    # loop edge to keyframe 0 at the relative pose of their true poses
+    live = np.nonzero(st.kf_mask)[0]
+    kf0, kfn = int(live[0]), int(live[-1])
+    gt = {k: frames[int(st.kf_frame_id[k])][3:] for k in (kf0, kfn)}
+    R_rel = gt[kf0][0] @ gt[kfn][0].T
+    t_rel = gt[kf0][1] - R_rel @ gt[kfn][1]
+
+    def rel_err():
+        Rr = st.kf_R[kf0] @ st.kf_R[kfn].T
+        return float(np.linalg.norm(st.kf_t[kf0] - Rr @ st.kf_t[kfn] - t_rel))
+
+    st.kf_t[kfn] = st.kf_t[kfn] + np.array([0.05, 0.0, -0.03], np.float32)
+    e_before = rel_err()
+    corr, corr_ms = _event_ms(
+        torch, lambda: system.loop_closer._correct(kfn, kf0, R_rel, t_rel))
+    e_after = rel_err()
+    print(f"phase 17: sharded loop correction (keyframe {kfn} against {kf0}, "
+          f"{corr['n_kf']} vertices): pose graph {corr['cost0']:.5f} -> "
+          f"{corr['cost']:.6f} in {corr_ms:.2f} ms; the loop's relative "
+          f"translation error {e_before:.4f} -> {e_after:.4f} m")
+    if not (corr["cost"] < corr["cost0"] and e_after < 0.5 * e_before):
+        _fail(f"phase 17 sharded loop correction {corr}, error {e_before} -> "
+              f"{e_after}")
+    err = _hold_k1(torch, hamming, words, k1_ms_at, dict(hamming.shapes), 17)
+    del system
+
+    # the product-path scenario of dryrun_multichip itself: 6 keyframes,
+    # 512 landmarks, global_ba() on the 2-shard mesh against no mesh
+    costs = {}
+    for name in ("sharded", "unsharded"):
+        dsys = System(dcam, SystemConfig(num_features=128, n_levels=3,
+                                         max_kf=32, max_pts=4096,
+                                         local_ba=True, loop_closing=False,
+                                         sharded_backend=True),
+                      device="cuda")
+        if name == "sharded":
+            dsys.local_mapper.mesh = mesh2
+        pids = _dryrun_map(dsys.store, dcam)
+        info, ms = _event_ms(torch, dsys.local_mapper.global_ba)
+        costs[name] = (info, ms, dsys.store.pt_xyz[pids].copy())
+    (si, sms, sx), (ui, ums, ux) = costs["sharded"], costs["unsharded"]
+    dx = float(np.abs(sx - ux).max())
+    print(f"phase 17: dryrun product path (6 keyframes, 512 landmarks): "
+          f"sharded global_ba {si['cost0']:.3f} -> {si['cost']:.3e} in "
+          f"{sms:.2f} ms, unsharded {ui['cost']:.3e} in {ums:.2f} ms; "
+          f"landmarks within {dx:.2e} m")
+    if not (np.isfinite(sx).all() and si["cost"] <= si["cost0"]
+            and dx <= 1e-3):
+        _fail(f"phase 17 dryrun product path {si}, {dx} m from unsharded")
+
+    # -- distributed_check: two gloo ranks on cuda:0 ----------------------
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "plvs_tpu_torch.parallel.distributed_check",
+         f"tcp://127.0.0.1:{port}", "2", str(r), "--device", "cuda"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dist_s = time.perf_counter() - t1
+    ranks = []
+    for p, out in zip(procs, outs):
+        line = [ln for ln in out.splitlines() if ln.startswith("DIST_OK")]
+        if p.returncode != 0 or not line:
+            _fail(f"phase 17 distributed_check rank failed: {out[-2000:]}")
+        ranks.append(float(line[0].split("cost=")[1]))
+    ccam, cprob = distributed_check.make_problem(dev)
+    (one,), one_ms = _event_ms(torch, lambda: (float(ba.bundle_adjust(
+        ccam, cprob, num_iters=2, cg_iters=8,
+        scatter_free=False)[-1]["cost"]),))
+    print(f"phase 17: distributed_check, 2 gloo ranks on cuda:0: costs "
+          f"{ranks} in {dist_s:.1f} s of wall (two processes); the "
+          f"in-process solve {one:.6f} in {one_ms:.2f} ms")
+    if ranks[0] != ranks[1] or abs(ranks[0] - one) > 1e-3 * one:
+        _fail(f"phase 17 gloo ranks {ranks} against in-process {one}")
+
+    # -- the direct Schur BA on a window of phase 4's size -----------------
+    wprob = _schur_window(torch, ba, dev)
+
+    def schur():
+        return ba.bundle_adjust(cam, wprob, num_iters=5, cg_iters=14,
+                                schur_direct=True)
+
+    def pcg():
+        return ba.bundle_adjust(cam, wprob, num_iters=5, cg_iters=14)
+
+    schur(), pcg()
+    sout, s_ms = _event_ms(torch, schur)
+    pout, p_ms = _event_ms(torch, pcg)
+    cpu = ba.bundle_adjust(cam, ba.BAProblem(*(f.cpu() for f in wprob)),
+                           num_iters=5, cg_iters=14, schur_direct=True)
+    sc, sc0 = float(sout[-1]["cost"]), float(sout[-1]["cost0"])
+    cc = float(cpu[-1]["cost"])
+    Kw, Pw, Lw = SCHUR_WINDOW
+    print(f"phase 17: schur_direct on a {Kw}-keyframe window ({Pw} landmarks,"
+          f" {wprob.obs_cam.shape[0]} observations, {Lw} lines, "
+          f"{wprob.lobs_cam.shape[0]} line observations), 5 LM x 14 CG: cost "
+          f"{sc0:.3f} -> {sc:.4f} in {s_ms:.2f} ms ({int(sout[-1]['cg_iters'])}"
+          f" CG), the CPU's {cc:.4f}; the PCG solve {float(pout[-1]['cost']):.4f}"
+          f" in {p_ms:.2f} ms ({int(pout[-1]['cg_iters'])} CG)")
+    if not (math.isfinite(sc) and sc <= sc0 and abs(sc - cc) <= 1e-3 * cc):
+        _fail(f"phase 17 schur_direct cost {sc0} -> {sc}, CPU {cc}")
+    return {"launches": launches, "k1_err": err}
+
+
 def main() -> int:
     import torch
 
@@ -2971,18 +3455,20 @@ def main() -> int:
                   k1_ms_at, words)
     run16 = timed(16, _phase16, torch, cam, system, frames,
                   launches3.pop("system"), k1_ms_at, words)
+    run17 = timed(17, _phase17, torch, cam, frames, k1_ms_at, words)
     launches5, launches6 = run5["launches"], run6["launches"]
     launches7, launches8 = run7["launches"], run8["launches"]
     launches9 = run9["launches"]
     later = {10: run10["launches"], 11: run11["launches"],
              12: run12["launches"], 13: run13["launches"],
              14: run14["launches"], 15: run15["launches"],
-             16: run16["launches"]}
+             16: run16["launches"], 17: run17["launches"]}
     k1_err = max(k1_err, launches3["k1_err"], launches4["k1_err"],
                  run5["k1_err"], run6["k1_err"], run7["k1_err"],
                  run8["k1_err"], run9["k1_err"], run10["k1_err"],
                  run11["k1_err"], run12["k1_err"], run13["k1_err"],
-                 run14["k1_err"], run15["k1_err"], run16["k1_err"])
+                 run14["k1_err"], run15["k1_err"], run16["k1_err"],
+                 run17["k1_err"])
 
     kernels = [
         {"name": "hamming_matrix", "route": "cuda",

@@ -112,6 +112,20 @@ def _tsdf_update(block_coords, tsdf, weight, color, depth_img, color_img,
             c_out.reshape(color.shape))
 
 
+def integrate_blocks(block_coords, tsdf, weight, color, depth_img, color_img,
+                     Rcw, tcw, cam: cam_mod.Camera, voxel_size: float,
+                     trunc: float, max_weight: float = 100.0):
+    """Projective TSDF update of all ``B`` blocks against one depth frame:
+    block_coords [B, 3] int, tsdf / weight [B, 8, 8, 8], color
+    [B, 8, 8, 8, 3], depth [H, W] (<= 0 invalid), color [H, W, 3]. Returns
+    the new (tsdf, weight, color); the inputs are not modified. The
+    fixed-shape public entry, and the unit of the block-sharded update
+    (``parallel/sharded_tsdf.py``)."""
+    return _tsdf_update(block_coords, tsdf, weight, color, depth_img,
+                        color_img, Rcw, tcw, cam, voxel_size, trunc,
+                        max_weight)
+
+
 def _integrate_resident(coords_full, tsdf_full, weight_full, color_full,
                         n_valid: int, depth_img, color_img, Rcw, tcw, cam,
                         voxel_size: float, trunc: float, nb: int):

@@ -18,9 +18,7 @@ Differences from the JAX package, all deliberate:
   to shape buckets: PyTorch compiles nothing per shape. What the buckets
   meant beyond padding is kept: under ``fixed_shapes`` the line block of
   the local BA is present even for fewer than 4 lines;
-* the sharded global BA (``mesh``, ROADMAP.md queue 1 item 8) is not
-  ported yet, and ``warm_ba_buckets`` has no counterpart (it precompiles
-  XLA shapes);
+* ``warm_ba_buckets`` has no counterpart (it precompiles XLA shapes);
 * a deferred write-back (the interleaved backend applies a solve frames
   after its dispatch) skips landmark slots that were culled and reused in
   between: the JAX package checks keyframe slots by identity but points
@@ -142,6 +140,10 @@ class LocalMapper:
     # monocular maps grow by triangulation against covisible neighbours
     # (create_new_points); depth maps grow from depth at keyframe creation
     triangulate_new_points: bool = False
+    # shards of the observation-sharded global BA (SystemConfig.
+    # sharded_backend, parallel/sharded_ba.py); the windowed local BA stays
+    # on one device: its problem is too small to pay for the reductions
+    mesh: object | None = None
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
@@ -510,7 +512,8 @@ class LocalMapper:
         if map_id is None:
             map_id = st.active_map
         window = np.sort(st.kfs_of_map(map_id)).astype(np.int64)
-        return self._window_ba(window, num_iters=num_iters)
+        return self._window_ba(window, num_iters=num_iters,
+                               use_mesh=self.mesh is not None)
 
     def global_ba_dispatch(self, map_id: int | None = None,
                            num_iters: int = 10):
@@ -521,13 +524,15 @@ class LocalMapper:
         if map_id is None:
             map_id = st.active_map
         window = np.sort(st.kfs_of_map(map_id)).astype(np.int64)
-        return self._ba_dispatch(window, num_iters=num_iters, cg_iters=30)
+        return self._ba_dispatch(window, num_iters=num_iters, cg_iters=30,
+                                 use_mesh=self.mesh is not None)
 
     def _window_ba(self, window: np.ndarray, num_iters: int = 6,
-                   cg_iters: int = 30):
+                   cg_iters: int = 30, use_mesh: bool = False):
         """Windowed LM solve and its write-back."""
         return self._solve(self._ba_dispatch(window, num_iters=num_iters,
-                                             cg_iters=cg_iters))
+                                             cg_iters=cg_iters,
+                                             use_mesh=use_mesh))
 
     def _solve(self, ctx):
         """Fetch a dispatched solve (its only host read) and apply it."""
@@ -554,13 +559,17 @@ class LocalMapper:
         return info
 
     def _ba_dispatch(self, window: np.ndarray, num_iters: int = 6,
-                     cg_iters: int = 30):
+                     cg_iters: int = 30, use_mesh: bool = False,
+                     schur: bool = False):
         """Dispatch half of the windowed LM solve: snapshot the window,
         queue every LM iteration on the device, return a ctx whose "outs"
         are the solved blocks and the cost. With ``abort_check`` set the
         iterations run in chunks of ``ba_chunk_iters`` (each chunk a fresh
         LM from the last one's blocks, as in the JAX package), and the
-        solve stops after a chunk once the check is true."""
+        solve stops after a chunk once the check is true. ``use_mesh``
+        runs the observation-sharded solve over ``mesh``; ``schur`` the
+        direct Schur preconditioner (``ba.bundle_adjust(schur_direct=
+        True)``)."""
         with self.store.lock:
             packed = self._gather_ba(window)
             if packed is None:
@@ -576,8 +585,19 @@ class LocalMapper:
         while done < num_iters:
             it = (num_iters - done if self.abort_check is None
                   else min(self.ba_chunk_iters, num_iters - done))
-            R, t, p, lXs, lXe, info = ba.bundle_adjust(
-                self.cam, prob, num_iters=it, cg_iters=cg_iters)
+            if use_mesh:
+                from ..parallel import sharded_ba
+
+                R, t, p, lXs, lXe, info = sharded_ba.bundle_adjust_sharded(
+                    self.cam, prob, self.mesh, num_iters=it,
+                    cg_iters=cg_iters)
+            elif schur:
+                R, t, p, lXs, lXe, info = ba.bundle_adjust(
+                    self.cam, prob, num_iters=it, cg_iters=cg_iters,
+                    schur_direct=True)
+            else:
+                R, t, p, lXs, lXe, info = ba.bundle_adjust(
+                    self.cam, prob, num_iters=it, cg_iters=cg_iters)
             prob = prob._replace(R=R, t=t, points=p, lines_Xs=lXs,
                                  lines_Xe=lXe)
             infos.append(info)

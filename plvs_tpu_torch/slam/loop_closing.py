@@ -19,8 +19,10 @@ reproduce). Once ``gravity_w`` is set (the System sets it when the IMU
 is initialized) the correction is the 4-DoF essential graph: each vertex
 turns only about its camera-frame gravity axis. The map objects of
 ``object_store`` move with their best-observing keyframe (the latest one
-in the corrected map). The sharded pose graph (``mesh``) is not ported;
-setting it raises, naming its ROADMAP.md item.
+in the corrected map). With a ``mesh`` (``SystemConfig.sharded_backend``)
+the essential-graph solve runs edge-sharded over it
+(``parallel/sharded_pose_graph.py``); the 4-DoF form stays on one device,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,11 +39,6 @@ from ..solvers import pose_graph, sim3_solver
 from .frame import project_points
 from .keyframe_database import KeyFrameDatabase
 from .map_store import MapStore, spanning_tree
-
-# settings outside the ported slice -> ROADMAP.md item
-_NOT_IN_SLICE = {
-    "mesh": "queue 1 item 8, multi-device (the sharded pose graph)",
-}
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -83,6 +80,8 @@ class LoopCloser:
     gravity_w: np.ndarray | None = None
     object_store: object | None = None
     stopwatch: object | None = None  # optional stage timing (.scope(name))
+    # shards of the edge-sharded essential graph (parallel/
+    # sharded_pose_graph.py); the 4-DoF form runs unsharded
     mesh: object | None = None
     device: str | torch.device = "cuda"
 
@@ -92,11 +91,6 @@ class LoopCloser:
         return self.stopwatch.scope(name)
 
     def __post_init__(self):
-        for name, item in _NOT_IN_SLICE.items():
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"LoopCloser.{name} is not in the ported slice; "
-                    f"ROADMAP.md {item} ports it")
         self.device = resolve_device(self.device)
         if self.kfdb is None:
             self.kfdb = KeyFrameDatabase(self.store, device=self.device)
@@ -504,9 +498,17 @@ class LoopCloser:
             g = g / max(np.linalg.norm(g), 1e-9)
             dof4_axis = torch.from_numpy(np.ascontiguousarray(
                 np.einsum("kij,j->ki", R_before, g), np.float32)).to(dev)
-        Rn, tn, _, info = pose_graph.optimize(prob, num_iters=12, cg_iters=50,
-                                              fix_scale=self.fix_scale,
-                                              dof4_axis=dof4_axis)
+        if self.mesh is not None and dof4_axis is None:
+            from ..parallel import sharded_pose_graph
+
+            # the edges pad to the shard count inside (edge_s 1, masked)
+            Rn, tn, _, info = sharded_pose_graph.optimize_sharded(
+                prob, self.mesh, num_iters=12, cg_iters=50,
+                fix_scale=self.fix_scale)
+        else:
+            Rn, tn, _, info = pose_graph.optimize(
+                prob, num_iters=12, cg_iters=50, fix_scale=self.fix_scale,
+                dof4_axis=dof4_axis)
         Rn, tn = Rn.cpu().numpy(), tn.cpu().numpy()
         info = {k: v.item() for k, v in info.items()}
 

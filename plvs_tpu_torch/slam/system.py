@@ -10,8 +10,10 @@ resolution first (gray linear, depth nearest, as the JAX package does) and
 the camera scaled with it.
 
 Counterpart of plvs_tpu/slam/system.py: ``SystemConfig`` keeps every field
-and default of the JAX package; ``sharded_backend`` raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it. Depth
+and default of the JAX package. With ``sharded_backend`` on a machine with
+more than one visible CUDA device the global BA and the essential-graph
+solve run sharded over a mesh of all of them (``parallel/``); with one
+device, as with one TPU in the JAX package, ``System.mesh`` stays None. Depth
 maps grow from depth at every keyframe; a monocular map starts from two
 views and grows by triangulation in the local mapper. The keyframe
 database (place recognition) is always built: relocalization needs it.
@@ -157,12 +159,6 @@ class SystemConfig:
     rectify: bool = False
 
 
-# settings outside this slice -> (value that is in the slice, ROADMAP item)
-_NOT_IN_SLICE = {
-    "sharded_backend": (False, "queue 1 item 8, multi-device"),
-}
-
-
 class System:
     """RGB-D / stereo / monocular SLAM on one device (optional keyframe
     backend, loop closing, dense mapping, map objects, deferred resolution
@@ -193,11 +189,6 @@ class System:
                                cam2=cam2, T_c1_c2=T_c1_c2,
                                imu_calib=imu_calib, imu_T_b_c=imu_T_b_c)
         self.config = c = config or SystemConfig()
-        for name, (ok_value, item) in _NOT_IN_SLICE.items():
-            if getattr(c, name) != ok_value:
-                raise NotImplementedError(
-                    f"SystemConfig.{name}={getattr(c, name)!r} is not in the "
-                    f"ported slice; ROADMAP.md {item} ports it")
         if c.sensor not in ("rgbd", "stereo", "mono"):
             raise ValueError(f"unknown sensor {c.sensor!r}")
         self.device = resolve_device(device)
@@ -269,6 +260,17 @@ class System:
         self.loop_closer = (LoopCloser(self.store, kfdb=self.kfdb, cam=cam,
                                        device=self.device)
                             if c.loop_closing else None)
+        # the sharded backend's mesh over every visible card; none on one
+        # card (or on the CPU), where the solves run unsharded
+        self.mesh = None
+        if (c.sharded_backend and self.device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            from ..parallel import sharded_ba
+
+            self.mesh = sharded_ba.make_mesh(torch.cuda.device_count())
+            self.local_mapper.mesh = self.mesh
+            if self.loop_closer is not None:
+                self.loop_closer.mesh = self.mesh
         self.loops_closed = []  # (kf_id, info) per closed loop
         self.dense_mapper = None
         if c.dense_mapping:

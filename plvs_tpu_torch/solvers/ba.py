@@ -6,10 +6,16 @@ applied matrix-free (per-observation Jacobian blocks evaluated in one
 batched pass; H @ x is two gathers and two segment sums) and solved by
 block-Jacobi preconditioned conjugate gradient inside an LM trust loop.
 
-Segment sums follow the JAX package's ``scatter_free=True`` semantics, not
-``index_add_``: points and lines sort once and reduce by a cumulative sum
-read at two ``searchsorted`` boundaries, cameras by a one-hot product.
-Atomic adds would sum in a different order on every run.
+Segment sums take one of the JAX package's two formulations. With
+``scatter_free=True`` (the default here, the product path) points and lines
+sort once and reduce by a cumulative sum read at two ``searchsorted``
+boundaries, cameras by a one-hot product: the same order on every run. With
+``scatter_free=False`` every segment sum is ``index_add_`` into zeros
+(``jax.ops.segment_sum``), which on CUDA adds by atomics in an order that
+changes from run to run; it is the formulation the sharded backend
+(``parallel/sharded_ba.py``) splits by shard. ``schur_direct=True``
+preconditions the CG by the explicit reduced camera system (see
+``bundle_adjust``).
 
 The JAX ``while_loop``s stop on device values (the CG residual, the LM
 convergence flag). Reading those back every iteration would cost up to
@@ -132,11 +138,15 @@ def _safe_z(z):
 # residuals / Jacobians (batched over the observation tables)
 # ---------------------------------------------------------------------------
 
-def _point_terms(cam, R, t, points, prob: BAProblem, jac: bool = True):
+def _point_terms(cam, R, t, points, prob: BAProblem, jac: bool = True,
+                 gather_p=None):
     """Residual [M, 3], Jc [M, 3, 6], Jp [M, 3, 3], validity [M], row
-    weights [M, 3], is_stereo [M] (Jacobians None when ``jac`` is False)."""
+    weights [M, 3], is_stereo [M] (Jacobians None when ``jac`` is False).
+    ``gather_p`` reads each observation's point (``points[obs_pt]`` when
+    None)."""
     Rm = R[prob.obs_cam]
-    Xc = _mv(Rm, points[prob.obs_pt]) + t[prob.obs_cam]
+    Xw = points[prob.obs_pt] if gather_p is None else gather_p(points)
+    Xc = _mv(Rm, Xw) + t[prob.obs_cam]
     uv = cam_mod.project(cam, Xc)
     z = Xc[..., 2]
     z_safe = _safe_z(z)
@@ -248,6 +258,72 @@ def _onehot_seg_reduce(idx: torch.Tensor, num_segments: int):
     return reduce
 
 
+def _index_add_reduce(idx: torch.Tensor, num_segments: int):
+    """``jax.ops.segment_sum``: ``index_add_`` into zeros (on CUDA by
+    atomics, so the float32 sum order changes from run to run)."""
+    def reduce(v):
+        return torch.zeros((num_segments,) + v.shape[1:], dtype=v.dtype,
+                           device=v.device).index_add_(0, idx, v)
+
+    return reduce
+
+
+def _sorted_seg_reduce_exact(idx: torch.Tensor, num_segments: int):
+    """Segment sum whose accumulator resets at every segment head, so each
+    segment's error is about eps x its own sum (the cumulative-sum trick
+    carries eps x the global sum): the exact Schur assembly needs it. The
+    JAX package runs a segmented associative scan; here the values sort
+    once by segment (stable) and ``torch.segment_reduce`` sums each
+    segment's run in a fixed order on the CPU and on CUDA alike (no
+    atomics), so every run gives the same sums. Empty segments read 0."""
+    order = torch.argsort(idx, stable=True)
+    idx_s = idx[order]
+    seg = torch.arange(num_segments, dtype=idx.dtype, device=idx.device)
+    lengths = (torch.searchsorted(idx_s, seg, right=True)
+               - torch.searchsorted(idx_s, seg))
+
+    def reduce(v):
+        # unsafe: the lengths sum to the row count by construction, and
+        # their check would read them back to the host
+        return torch.segment_reduce(v[order], "sum", lengths=lengths, axis=0,
+                                    unsafe=True)
+
+    return reduce
+
+
+class Reductions(NamedTuple):
+    """How a solve sums over its observation rows: the segment sums of the
+    point observations into cameras (``seg_c``) and points (``seg_p``),
+    their gather of point blocks (``gather_p``: x [P, ...] -> [M, ...]),
+    the plain sum of a per-observation quantity (``total``: the cost), and
+    the line observations' segment sums into cameras (``seg_lc``) and lines
+    (``seg_ll``). The sharded backend replaces the first four
+    (``parallel/sharded_ba.py``)."""
+
+    seg_c: object
+    seg_p: object
+    gather_p: object
+    total: object
+    seg_lc: object
+    seg_ll: object
+
+
+def _reductions(prob: BAProblem, scatter_free: bool,
+                obs: tuple | None = None) -> Reductions:
+    """The solve's segment sums in the ``scatter_free`` formulation; the
+    point observations' (seg_c, seg_p, gather_p, total) from ``obs`` when
+    the caller gives them."""
+    K, P, L = prob.R.shape[0], prob.points.shape[0], prob.lines_Xs.shape[0]
+    cams, pts = ((_onehot_seg_reduce, _sorted_seg_reduce) if scatter_free
+                 else (_index_add_reduce, _index_add_reduce))
+    if obs is None:
+        obs = (cams(prob.obs_cam, K), pts(prob.obs_pt, P),
+               lambda x: x[prob.obs_pt], lambda v: v.sum())
+    lines = ((cams(prob.lobs_cam, K), pts(prob.lobs_line, L)) if L > 0
+             else (None, None))
+    return Reductions(*obs, *lines)
+
+
 # ---------------------------------------------------------------------------
 # the two loops, at full trip count with an active flag (module docstring)
 # ---------------------------------------------------------------------------
@@ -323,28 +399,49 @@ def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, num_iters: int = 10,
                   schur_direct: bool = False):
     """Run LM bundle adjustment; returns (R, t, points, lines_Xs, lines_Xe,
     info) with info = dict(cost0, cost, lam, lm_iters, cg_iters), all device
-    tensors. ``scatter_free=False`` (the segment-sum formulation the sharded
-    backend uses) and ``schur_direct=True`` (the explicit reduced camera
-    system) are not ported yet."""
-    if not scatter_free:
-        raise NotImplementedError(
-            "bundle_adjust(scatter_free=False) is the sharded backend's "
-            "formulation; ROADMAP.md queue 1 item 8 (multi-device) ports it")
-    if schur_direct:
-        raise NotImplementedError(
-            "bundle_adjust(schur_direct=True) is not on the product path; "
-            "ROADMAP.md queue 1 item 9 (direct Schur BA) ports it")
+    tensors.
+
+    ``scatter_free=False`` takes the segment-sum formulation (module
+    docstring). ``schur_direct=True`` builds the explicit reduced camera
+    system each LM step: Jacobi scaling of every block to unit diagonal,
+    symmetrised block inverses of the landmarks, the dense [P, K, 6, 3]
+    camera-point coupling, the Schur complement S = Hcc - Y Hpp^-1 Y^T with
+    a 1e-4 ridge and unit rows for fixed cameras, its Cholesky factor, then
+    the camera solve and the landmarks' back substitution. That solve
+    preconditions at most 10 CG iterations on the exact matrix-free
+    operator. Its memory grows with P x K: keep it to windowed problems
+    (K up to ~64), as the JAX package does. A factor that is not positive
+    definite reads NaN (as ``cho_factor`` does), and the LM rejects the
+    step."""
+    return _bundle_adjust(cam, prob, num_iters, cg_iters, lam0, line_weight,
+                          scatter_free, schur_direct)
+
+
+def _bundle_adjust(cam, prob: BAProblem, num_iters, cg_iters, lam0,
+                   line_weight, scatter_free, schur_direct, obs=None):
+    """``bundle_adjust``; ``obs`` replaces the point observations' row
+    reductions (:class:`Reductions`), the sharded backend's hook."""
     K = prob.R.shape[0]
     P = prob.points.shape[0]
     L = prob.lines_Xs.shape[0]
     has_lines = L > 0
     dev, f32 = prob.R.device, prob.R.dtype
-
-    seg_c = _onehot_seg_reduce(prob.obs_cam, K)
-    seg_p = _sorted_seg_reduce(prob.obs_pt, P)
-    if has_lines:
-        seg_lc = _onehot_seg_reduce(prob.lobs_cam, K)
-        seg_ll = _sorted_seg_reduce(prob.lobs_line, L)
+    red = _reductions(prob, scatter_free, obs)
+    seg_c, seg_p, seg_lc, seg_ll = red.seg_c, red.seg_p, red.seg_lc, red.seg_ll
+    if schur_direct:
+        # the exact reducer on every side of the assembly: the one-hot
+        # product's float32 accumulation (~4e-4 relative, the JAX package
+        # measured) suits the CG's preconditioner but drowns the reduced
+        # system's small (~lam) eigenvalues
+        seg_cp = _sorted_seg_reduce_exact(prob.obs_pt * K + prob.obs_cam,
+                                          P * K)
+        seg_c_x = _sorted_seg_reduce_exact(prob.obs_cam, K)
+        seg_p_x = _sorted_seg_reduce_exact(prob.obs_pt, P)
+        if has_lines:
+            seg_cl = _sorted_seg_reduce_exact(
+                prob.lobs_line * K + prob.lobs_cam, L * K)
+            seg_lc_x = _sorted_seg_reduce_exact(prob.lobs_cam, K)
+            seg_ll_x = _sorted_seg_reduce_exact(prob.lobs_line, L)
 
     free_c = ((~prob.fixed_cam) & prob.cam_mask).to(f32)[:, None]
     pt_m = prob.point_mask.to(f32)[:, None]
@@ -358,12 +455,12 @@ def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, num_iters: int = 10,
         return robust.huber_weight(chi2, delta2), chi2
 
     def cost_fn(R, t, points, lXs, lXe):
-        res, _, _, ok, row_w, is_st = _point_terms(cam, R, t, points, prob,
-                                                   jac=False)
+        res, _, _, ok, row_w, is_st = _point_terms(
+            cam, R, t, points, prob, jac=False, gather_p=red.gather_p)
         _, chi2 = robust_w(res * torch.sqrt(row_w), prob.obs_inv_sigma2,
                            is_st)
-        c = (torch.minimum(chi2, chi2_pt(is_st) * 2.0) * ok).sum()
-        n_ok = ok.sum()
+        c = red.total(torch.minimum(chi2, chi2_pt(is_st) * 2.0) * ok)
+        n_ok = red.total(ok.to(f32))
         if has_lines:
             lres, _, _, lok, lrow = _line_terms(cam, R, t, lXs, lXe, prob,
                                                 jac=False)
@@ -384,9 +481,21 @@ def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, num_iters: int = 10,
         # inv_ex: no error check, so no host sync
         return torch.linalg.inv_ex(H + eye * 1e-8)[0]
 
+    def sym_inv(H):
+        """The symmetrised inverse: a float32 inverse of a near-singular
+        block carries an asymmetric error that would cost S its
+        positive definiteness."""
+        Hi = torch.linalg.inv_ex(H)[0]
+        return 0.5 * (Hi + Hi.transpose(-1, -2))
+
+    def jacobi(Hd):
+        return torch.rsqrt(torch.clamp(torch.diagonal(Hd, dim1=-2, dim2=-1),
+                                       min=1e-12))
+
     def lm_step(R, t, points, lXs, lXe, lam, cost_prev):
         # ---- linearize ----
-        res, Jc, Jp, ok, row_w, is_st = _point_terms(cam, R, t, points, prob)
+        res, Jc, Jp, ok, row_w, is_st = _point_terms(
+            cam, R, t, points, prob, gather_p=red.gather_p)
         rw, _ = robust_w(res * torch.sqrt(row_w), prob.obs_inv_sigma2, is_st)
         w = prob.obs_inv_sigma2 * rw * ok
         wr = w[:, None] * row_w                                  # [M, 3]
@@ -423,7 +532,7 @@ def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, num_iters: int = 10,
         def matvec(xc, xp, xl):
             xc = xc * free_c
             xp = xp * pt_m
-            u = (_mv(Jc, xc[prob.obs_cam]) + _mv(Jp, xp[prob.obs_pt])) * wr
+            u = (_mv(Jc, xc[prob.obs_cam]) + _mv(Jp, red.gather_p(xp))) * wr
             yc = seg_c(_JTv(Jc, u))
             yp = seg_p(_JTv(Jp, u))
             if has_lines:
@@ -441,7 +550,84 @@ def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, num_iters: int = 10,
             return (_mv(Mc, rc) * free_c, _mv(Mp, rp) * pt_m,
                     _mv(Ml_, rl) * ln_m if has_lines else rl)
 
-        x, n_cg = _pcg(matvec, precond, (bc, bp, bl), cg_iters)
+        if schur_direct:
+            # ---- the explicit reduced camera system as the preconditioner
+            # (float32 throughout: with TF32 the coupling products' error
+            # would wreck S as the one-hot sums' would) ----
+            bc_x = -seg_c_x(_JTv(Jc, wr * res))
+            Hcc_x = seg_c_x(_JTWJ(Jc, wr))
+            bp_x = -seg_p_x(_JTv(Jp, wr * res)) * pt_m
+            Hpp_x = seg_p_x(_JTWJ(Jp, wr))
+            if has_lines:
+                bc_x = bc_x - seg_lc_x(_JTv(lJc, lwr * lres))
+                Hcc_x = Hcc_x + seg_lc_x(_JTWJ(lJc, lwr))
+                bl_x = -seg_ll_x(_JTv(lJl, lwr * lres)) * ln_m
+                Hll_dx = damped(seg_ll_x(_JTWJ(lJl, lwr)), lam)
+            else:
+                bl_x = bl
+            bc_x = bc_x * free_c
+            Hcc_dx = damped(Hcc_x, lam)
+            Hpp_dx = damped(Hpp_x, lam)
+            # Jacobi scaling: every block at unit diagonal bounds the
+            # scaled Hpp's condition by ~1/lam and keeps S's entries O(1)
+            dc, dp = jacobi(Hcc_dx), jacobi(Hpp_dx)
+            A = Hcc_dx * dc[:, :, None] * dc[:, None, :]
+            Mp_s = sym_inv(Hpp_dx * dp[:, :, None] * dp[:, None, :])
+            # Y[p, k] = sum over p's observations in camera k of Jc^T W Jp
+            JcWJp = (Jc * wr[..., None]).transpose(-1, -2) @ Jp   # [M, 6, 3]
+            Y = (seg_cp(JcWJp.reshape(-1, 18)).reshape(P, K, 6, 3)
+                 * dc[None, :, :, None] * dp[:, None, None, :])
+            T = torch.einsum("pkac,pcd->pkad", Y, Mp_s)
+            U = torch.einsum("pkad,plbd->kalb", T, Y)              # [K,6,K,6]
+            if has_lines:
+                dl = jacobi(Hll_dx)
+                Ml_s = sym_inv(Hll_dx * dl[:, :, None] * dl[:, None, :])
+                JcWJl = (lJc * lwr[..., None]).transpose(-1, -2) @ lJl
+                Yl = (seg_cl(JcWJl.reshape(-1, 36)).reshape(L, K, 6, 6)
+                      * dc[None, :, :, None] * dl[:, None, None, :])
+                Tl = torch.einsum("lkab,lbc->lkac", Yl, Ml_s)
+                U = U + torch.einsum("lkac,lnbc->kanb", Tl, Yl)
+            eyeK = torch.eye(K, dtype=f32, device=dev)
+            S = (torch.einsum("kab,kl->kalb", A, eyeK) - U).reshape(
+                6 * K, 6 * K)
+            S = 0.5 * (S + S.T) + 1e-4 * torch.eye(6 * K, dtype=f32,
+                                                   device=dev)
+            # fixed cameras: zero rows and columns, unit diagonal, so the
+            # factor stays positive definite and their solution is 0
+            ff = free_c[:, 0].repeat_interleave(6)
+            S = S * ff[:, None] * ff[None, :] + torch.diag(1.0 - ff)
+            # cholesky_ex: no error check, so no host sync; a factor that
+            # failed reads NaN, as the JAX package's cho_factor gives it
+            Lc, fail = torch.linalg.cholesky_ex(S)
+            Lc = torch.where(fail == 0, Lc, torch.full_like(Lc, float("nan")))
+
+            def schur_solve(rc, rp, rl):
+                """(H + lam D)^-1 approximately, through the factor:
+                forward-reduce, camera solve, back-substitute."""
+                rc_s, rp_s = rc * dc, rp * dp
+                rt = rc_s - torch.einsum("pkad,pd->ka", T, rp_s)
+                if has_lines:
+                    rl_s = rl * dl
+                    rt = rt - torch.einsum("lkab,lb->ka", Tl, rl_s)
+                xc_s = torch.cholesky_solve(
+                    (rt.reshape(6 * K) * ff)[:, None], Lc)[:, 0].reshape(
+                        K, 6) * free_c
+                xp = dp * _mv(Mp_s, rp_s - torch.einsum("pkac,ka->pc", Y,
+                                                        xc_s)) * pt_m
+                if has_lines:
+                    xl = dl * _mv(Ml_s, rl_s - torch.einsum(
+                        "lkac,ka->lc", Yl, xc_s)) * ln_m
+                else:
+                    xl = rl
+                return xc_s * dc, xp, xl
+
+            # CG on the exact operator, preconditioned by the factor: its
+            # float32 error (~1e-2 relative through the inverses) would spoil
+            # a direct step, but CG's descent holds whatever the error
+            x, n_cg = _pcg(matvec, schur_solve, (bc_x, bp_x, bl_x),
+                           min(cg_iters, 10))
+        else:
+            x, n_cg = _pcg(matvec, precond, (bc, bp, bl), cg_iters)
         dxc, dxp, dxl = x
 
         # ---- apply & accept / reject ----

@@ -17,7 +17,9 @@ CG while the residual has not collapsed) run their full trip counts here
 with a device-side ``active`` flag and ``torch.where`` updates, so a solve
 reads nothing back to the host; the result is the one the early-exit loops
 give. Segment sums over edges are one-hot products (vertex counts are
-small), which sum in a fixed order on every device.
+small), which sum in a fixed order on every device; the edge-sharded
+solve (``parallel/sharded_pose_graph.py``) replaces them through
+``_optimize``'s ``edges`` hook.
 """
 
 from __future__ import annotations
@@ -131,16 +133,26 @@ def optimize(prob: PoseGraphProblem, num_iters: int = 15, cg_iters: int = 50,
     dict(cost0, cost, lm_iters, cg_iters), all device tensors.
     ``dof4_axis`` [K, 3]: the camera-frame gravity direction per vertex
     (the 4-DoF graph, see the module docstring)."""
+    return _optimize(prob, num_iters, cg_iters, fix_scale, lam0, dof4_axis)
+
+
+def _optimize(prob: PoseGraphProblem, num_iters, cg_iters, fix_scale, lam0,
+              dof4_axis, edges=None):
+    """``optimize``; ``edges`` = (seg_i, seg_j, total) replaces the sums
+    over the edge rows (the segment sums into the edges' two vertices and
+    the cost's plain sum), the edge-sharded solve's hook."""
     K = prob.R.shape[0]
     dev, f32 = prob.R.device, prob.R.dtype
     free = (~prob.fixed).to(f32)[:, None]
     w = prob.edge_weight * prob.edge_mask
-    seg_i = _onehot_seg_reduce(prob.edge_i, K)
-    seg_j = _onehot_seg_reduce(prob.edge_j, K)
+    if edges is None:
+        edges = (_onehot_seg_reduce(prob.edge_i, K),
+                 _onehot_seg_reduce(prob.edge_j, K), torch.sum)
+    seg_i, seg_j, total = edges
     eye = torch.eye(7, dtype=f32, device=dev)
 
     def cost_of(R, t, s):
-        return edge_costs(prob, R, t, s).sum()
+        return total(edge_costs(prob, R, t, s))
 
     def lm_step(R, t, s, lam, cost_prev):
         r, Ji, Jj = linearize(prob, R, t, s, fix_scale, dof4_axis)

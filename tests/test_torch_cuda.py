@@ -399,6 +399,48 @@ def test_bundle_adjust_on_cuda_matches_cpu(dev):
         1e-3 * float(cpu[5]["cost"])
 
 
+def test_schur_direct_and_segment_sums_on_cuda_match_cpu(dev):
+    """``schur_direct=True`` and ``scatter_free=False`` on the card against
+    the same solves on the CPU: the cost within 1e-3 relative, poses and
+    points within 1e-4 (the card's atomics and cuSOLVER sum in another
+    order). The Schur factor runs outside sync-debug mode: cuSOLVER's
+    status handling may read back."""
+    fields = _ba_problem()
+    cam = cameras.pinhole(520.0, 520.0, 320.0, 240.0, width=640, height=480,
+                          bf=40.0)
+    for kw in (dict(schur_direct=True), dict(scatter_free=False)):
+        cpu = ba.bundle_adjust(
+            cam, convert.ba_problem_from_numpy(fields, "cpu"), num_iters=5,
+            cg_iters=14, **kw)
+        gpu = ba.bundle_adjust(cam, convert.ba_problem_from_numpy(
+            fields, dev), num_iters=5, cg_iters=14, **kw)
+        for a, b in zip(gpu[:3], cpu[:3]):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+        assert float(gpu[5]["cost"]) < float(gpu[5]["cost0"])
+        assert abs(float(gpu[5]["cost"]) - float(cpu[5]["cost"])) <= \
+            1e-3 * float(cpu[5]["cost"]), kw
+
+
+def test_sharded_ba_on_a_cuda_mesh_matches_unsharded(dev):
+    """The observation-sharded BA over 4 shards on the card (with and
+    without the landmarks partitioned) against the unsharded segment-sum
+    solve there: the cost within 1e-3 relative (the partial sums' order)."""
+    from plvs_tpu_torch.parallel import sharded_ba
+
+    fields = _ba_problem()
+    cam = cameras.pinhole(520.0, 520.0, 320.0, 240.0, width=640, height=480,
+                          bf=40.0)
+    prob = convert.ba_problem_from_numpy(fields, dev)
+    one = float(ba.bundle_adjust(cam, prob, num_iters=3, cg_iters=10,
+                                 scatter_free=False)[5]["cost"])
+    mesh = sharded_ba.make_mesh(4, device=dev)
+    for sp in (False, True):
+        out = sharded_ba.bundle_adjust_sharded(cam, prob, mesh, num_iters=3,
+                                               cg_iters=10, shard_points=sp)
+        assert out[0].device == prob.R.device
+        assert abs(float(out[5]["cost"]) - one) <= 1e-3 * one, sp
+
+
 def _store_state(store) -> dict:
     return {k: (v.copy() if isinstance(v, np.ndarray) else dict(v)
                 if isinstance(v, dict) else v)

@@ -69,6 +69,10 @@ def test_the_walk_covers_the_port():
                 "ros/nodes.py", "ros/ros1_nodes.py", "demo_ar.py",
                 "demo_inseg.py"):
         assert f"plvs_tpu_torch/{mod}" in names, mod
+    for mod in ("parallel/__init__.py", "parallel/sharded_ba.py",
+                "parallel/sharded_pose_graph.py", "parallel/sharded_tsdf.py",
+                "parallel/pipeline.py", "parallel/distributed_check.py"):
+        assert f"plvs_tpu_torch/{mod}" in names, mod
     assert len(names) > 30
     for src in ("import jax.numpy as jnp", "from plvs_tpu.ops import stereo",
                 "import importlib\nimportlib.import_module('jax')",

@@ -417,3 +417,91 @@ def test_system_with_local_ba_dense_map_agrees(system_runs):
     for key in ("occupied", "cached_tris"):
         assert jd[key] > 1000 and abs(td[key] - jd[key]) <= 0.01 * jd[key], (
             key, jd[key], td[key])
+
+
+# ---------------------------------------------------------------------------
+# the sharded backend on the product path (__graft_entry__.dryrun_multichip)
+# ---------------------------------------------------------------------------
+
+DRY_CAM = (300.0, 300.0, 160.0, 120.0)
+DRY_KW = dict(width=320, height=240, bf=24.0)
+# dryrun_multichip's System: the global BA runs sharded over the mesh
+DRY_FLAGS = dict(num_features=128, n_levels=3, max_kf=32, max_pts=4096,
+                 local_ba=True, loop_closing=False, sharded_backend=True)
+
+
+def _dryrun_map(stores):
+    """dryrun_multichip's product-path map, written identically into each
+    store: 512 landmarks 2.5-6 m ahead (1 cm of noise on their positions)
+    seen by 6 keyframes 5 cm apart, each keyframe's keypoints the exact
+    projections of the landmarks it sees."""
+    rng = np.random.default_rng(1)
+    pts_w = np.stack([rng.uniform(-2, 2, 512), rng.uniform(-1.5, 1.5, 512),
+                      rng.uniform(2.5, 6, 512)], -1).astype(np.float32)
+    noise = rng.normal(0, 0.01, (512, 3)).astype(np.float32)
+    fx, fy, cx, cy = DRY_CAM
+    pids = None
+    for st in stores:
+        pids = st.alloc_pts(512)
+        st.pt_mask[pids] = True
+        st.pt_xyz[pids] = pts_w + noise
+        for i in range(6):
+            kf = st.alloc_kf()
+            st.kf_mask[kf] = True
+            st.kf_R[kf] = np.eye(3, dtype=np.float32)
+            st.kf_t[kf] = np.asarray([-0.05 * i, 0, 0], np.float32)
+            Xc = pts_w @ st.kf_R[kf].T + st.kf_t[kf]
+            uv = np.stack([fx * Xc[:, 0] / Xc[:, 2] + cx,
+                           fy * Xc[:, 1] / Xc[:, 2] + cy], -1).astype(
+                np.float32)
+            ok = (Xc[:, 2] > 0.1) & (uv[:, 0] >= 0) & (uv[:, 0] < 320) \
+                & (uv[:, 1] >= 0) & (uv[:, 1] < 240)
+            sel = np.nonzero(ok)[0][: st.n_kp]
+            st.kf_kp_uvr[kf, : len(sel), :2] = uv[sel]
+            st.kf_kp_uvr[kf, : len(sel), 2] = -1.0
+            st.kf_kp_mask[kf, : len(sel)] = True
+            st.pt_ref_kf[pids[sel]] = np.where(
+                st.pt_ref_kf[pids[sel]] < 0, kf, st.pt_ref_kf[pids[sel]])
+            st.add_observations(kf, pids[sel], np.arange(len(sel)))
+    return pids
+
+
+def test_sharded_system_global_ba_like_jax():
+    """A System with ``sharded_backend``: the JAX one builds its mesh over
+    the 8 virtual CPU devices; the port's, on the CPU, has none (as on one
+    card), and gets an 8-shard CPU mesh set on its local mapper. Both run
+    dryrun_multichip's global BA (10 LM x 30 CG, sharded, segment sums).
+    Keyframe poses within 1e-5 and landmarks within 1e-3 m of JAX's and of
+    the port's unsharded solve (measured 1.2e-7 and 1.5e-5 m: the same
+    solve, its float32 partial sums in another order; the mono depths,
+    held by 25 cm of baseline, take the most of it)."""
+    jsys = JSystem(jcam.pinhole(*DRY_CAM, **DRY_KW), JConfig(**DRY_FLAGS))
+    tsys = TSystem(tcam.pinhole(*DRY_CAM, **DRY_KW), TConfig(**DRY_FLAGS),
+                   device="cpu")
+    assert jsys.mesh is not None and jsys.local_mapper.mesh is not None
+    assert tsys.mesh is None and tsys.local_mapper.mesh is None
+    from plvs_tpu_torch.parallel import sharded_ba as tsb
+
+    tsys.local_mapper.mesh = tsb.make_mesh(8, device="cpu")
+    pids = _dryrun_map([jsys.store, tsys.store])
+    x0 = tsys.store.pt_xyz[pids].copy()
+    jsys.local_mapper.global_ba()
+    tinfo = tsys.local_mapper.global_ba()
+    js, ts = jsys.store, tsys.store
+    assert np.isfinite(ts.pt_xyz[pids]).all()
+    assert tinfo["cost"] < tinfo["cost0"]
+    assert not np.array_equal(ts.pt_xyz[pids], x0)
+    live = np.nonzero(ts.kf_mask)[0]
+    np.testing.assert_array_equal(live, np.nonzero(js.kf_mask)[0])
+    np.testing.assert_allclose(ts.kf_R[live], js.kf_R[live], atol=1e-5)
+    np.testing.assert_allclose(ts.kf_t[live], js.kf_t[live], atol=1e-5)
+    np.testing.assert_allclose(ts.pt_xyz[pids], js.pt_xyz[pids], atol=1e-3)
+    # the unsharded solve of the same map reaches the same optimum (the
+    # keypoints are exact projections, so the cost falls to float32 noise)
+    one = TSystem(tcam.pinhole(*DRY_CAM, **DRY_KW), TConfig(**DRY_FLAGS),
+                  device="cpu")
+    _dryrun_map([one.store])
+    oinfo = one.local_mapper.global_ba()
+    assert abs(tinfo["cost"] - oinfo["cost"]) <= 1e-6 * tinfo["cost0"]
+    np.testing.assert_allclose(ts.pt_xyz[pids], one.store.pt_xyz[pids],
+                               atol=1e-3)

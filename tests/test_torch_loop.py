@@ -42,6 +42,7 @@ from plvs_tpu.slam import System as JSystem, SystemConfig as JConfig
 from plvs_tpu.slam import keyframe_database as jkfdb
 from plvs_tpu.slam import loop_closing as jloop
 from plvs_tpu.slam import map_store as jmap_store
+from plvs_tpu.parallel import sharded_ba as jsharded
 from plvs_tpu.slam.local_mapping import _SyncFetch
 from plvs_tpu.solvers import pose_graph as jpg
 from plvs_tpu.solvers import sim3_solver as jsim3
@@ -50,6 +51,7 @@ from plvs_tpu_torch.dense.mapping import DenseMapper as TDenseMapper
 from plvs_tpu_torch.geometry import cameras as tcam
 from plvs_tpu_torch.geometry import lie as tlie
 from plvs_tpu_torch.io import synthetic as tsyn
+from plvs_tpu_torch.parallel import sharded_ba as tsharded
 from plvs_tpu_torch.slam import System as TSystem, SystemConfig as TConfig
 from plvs_tpu_torch.slam import keyframe_database as tkfdb
 from plvs_tpu_torch.slam import loop_closing as tloop
@@ -313,14 +315,15 @@ def test_pose_graph_fixed_trip_counts_equal_host_loop(chain, num_iters,
 
 
 def test_pose_graph_unported_options_raise(chain):
-    """The sharded pose graph (item 8) raises; map objects are ported
-    since slice 10 (tests/test_torch_map_objects.py holds their loop move)
-    and the 4-DoF correction of inertial maps (``gravity_w``,
-    ``dof4_axis``) since slice 8 (tests/test_torch_vi_ba.py holds it to
+    """Every option constructs: the sharded pose graph's ``mesh``
+    (``test_revisit_closed_and_corrected_like_jax`` holds a closure over
+    it to JAX's), map objects (tests/test_torch_map_objects.py holds
+    their loop move) and the 4-DoF correction of inertial maps
+    (``gravity_w``, ``dof4_axis``; tests/test_torch_vi_ba.py holds it to
     JAX)."""
     st = tmap_store.MapStore(max_kf=4, max_pts=16, n_kp=8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tloop.LoopCloser(st, device="cpu", mesh=object())
+    mesh = tsharded.make_mesh(8, device="cpu")
+    assert tloop.LoopCloser(st, device="cpu", mesh=mesh).mesh is mesh
     objs = object()
     assert tloop.LoopCloser(st, device="cpu",
                             object_store=objs).object_store is objs
@@ -502,7 +505,22 @@ def test_revisit_closed_and_corrected_like_jax(revisit):
     """One coincidence required: both close against keyframe 0, fuse the
     duplicate landmarks, and pull the drifted keyframe back onto keyframe
     0's pose; every corrected keyframe within 2 cm of JAX's."""
+    _close_revisit(revisit, sharded=False)
+
+
+def test_revisit_closed_on_a_mesh_like_jax(revisit):
+    """The same closure with both closers' ``mesh`` set (JAX's 8-device
+    virtual CPU mesh, the port's 8 shards on the CPU): the essential graph
+    solves edge-sharded, its edges padded to the shard count, and the
+    correction holds to JAX's as the unsharded one does."""
+    _close_revisit(revisit, sharded=True)
+
+
+def _close_revisit(revisit, sharded: bool):
     js, ts, jc, tc, kf_new = _closers(revisit, required=1)
+    if sharded:
+        jc.mesh = jsharded.make_mesh(8)
+        tc.mesh = tsharded.make_mesh(8, device="cpu")
     err0 = np.linalg.norm(ts.kf_t[kf_new] - ts.kf_t[0])
     jinfo = jc.process_keyframe(kf_new)
     tinfo = tc.process_keyframe(kf_new)

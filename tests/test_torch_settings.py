@@ -198,15 +198,17 @@ def test_camera_scaling_helper():
 
 
 def test_a_setting_outside_the_port_parses_and_raises_at_the_system(tmp_path):
-    """``sharded_backend`` (multi-device, not ported) is no parser error:
-    the System refuses it, naming the ROADMAP item."""
+    """A file with ``System.shardedBackend: 1`` parses to equal settings in
+    both packages (neither parser maps that key), and with
+    ``sharded_backend`` set the parsed settings build a System: on the CPU
+    with no mesh, as the JAX package's on one device."""
     p = tmp_path / "s.yaml"
     p.write_text("Camera.fx: 300.0\nSystem.shardedBackend: 1\n")
     js, s = _both(str(p))
     _assert_same_settings(js, s)
     s.config.sharded_backend = True
-    with pytest.raises(NotImplementedError, match="item 8"):
-        System(s.camera, s.config, device="cpu")
+    system = System(s.camera, s.config, device="cpu")
+    assert system.config.sharded_backend and system.mesh is None
 
 
 def test_thirteen_presets_ship():

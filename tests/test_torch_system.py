@@ -134,15 +134,19 @@ def test_rgbd_dense_map_agrees(runs):
 
 
 def test_unsupported_settings_raise():
-    """Only the sharded backend still raises; the monocular sensor (with
-    and without the IMU), the image scale, rectification, the non-rectified
-    rig and the dense segmentation construct (tests/test_torch_mono.py,
-    tests/test_torch_stereo_rig.py and tests/test_torch_segmentation.py
-    hold them to JAX)."""
+    """Every setting constructs: the sharded backend (on the CPU, as on one
+    card, with no mesh: the solves run unsharded, as the JAX package's do
+    on one device; tests/test_torch_local_mapping.py holds a System with a
+    mesh set to JAX's), the monocular sensor (with and without the IMU),
+    the image scale, rectification, the non-rectified rig and the dense
+    segmentation (tests/test_torch_mono.py, tests/test_torch_stereo_rig.py
+    and tests/test_torch_segmentation.py hold them to JAX)."""
     cam = tcam.pinhole(*CAM_ARGS, **CAM_KW)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TSystem(cam, TConfig(**{**FLAGS, "sharded_backend": True}),
+    s = TSystem(cam, TConfig(**{**FLAGS, "sharded_backend": True,
+                                "local_ba": True, "loop_closing": True}),
                 device="cpu")
+    assert s.mesh is None and s.local_mapper.mesh is None
+    assert s.loop_closer.mesh is None
     s = TSystem(cam, TConfig(**{**FLAGS, "sensor": "mono"}), device="cpu")
     assert s.local_mapper.triangulate_new_points and s.inertial is None
     s = TSystem(cam, TConfig(**{**FLAGS, "sensor": "mono", "use_imu": True,
