@@ -184,6 +184,20 @@ def _label_update(block_coords, label, label_conf, depth_img, label_img, Rcw,
     return l_out.reshape(label.shape), c_out.reshape(label_conf.shape)
 
 
+def integrate_blocks_labels(block_coords, label, label_conf, depth_img,
+                            label_img, Rcw, tcw, cam: cam_mod.Camera,
+                            voxel_size: float, trunc: float,
+                            max_conf: float = 64.0):
+    """Label fusion of all ``B`` blocks against one frame: block_coords
+    [B, 3] int, label [B, 8, 8, 8] int32 global segment ids, label_conf
+    [B, 8, 8, 8] float32, depth [H, W], label_img [H, W] int32 (0 = none).
+    Returns the new (label, label_conf); the inputs are not modified. The
+    fixed-shape public entry of the label update."""
+    return _label_update(block_coords, label, label_conf, depth_img,
+                         label_img, Rcw, tcw, cam, voxel_size, trunc,
+                         max_conf)
+
+
 @dataclasses.dataclass
 class TSDFVolume:
     """Host-managed block table + device-batched integration."""

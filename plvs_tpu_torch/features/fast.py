@@ -68,6 +68,12 @@ def fast_score2(img: torch.Tensor, t_lo: float, t_hi: float):
     return s_lo, torch.where(corner_hi, s_lo, 0.0)
 
 
+def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Per-pixel FAST-9/16 corner score (0 where not a corner): the sum of
+    |I_i - I_p| - t over the thresholded circle pixels."""
+    return fast_score2(img, threshold, threshold)[0]
+
+
 def nms3(score: torch.Tensor) -> torch.Tensor:
     """3x3 non-max suppression over the last two axes (keep local maxima;
     the window pads with -inf like reduce_window SAME)."""

@@ -235,5 +235,10 @@ def _extract_batched(img, per, shapes, n_levels, scale, threshold_hi,
                      octave=lvl, desc=d, mask=torch.cat(va_l))
 
 
+def scale_sigma2(octave: torch.Tensor, scale: float = 1.2) -> torch.Tensor:
+    """Per-keypoint sigma^2 = scale^(2 * octave)."""
+    return scale ** (2.0 * octave.to(torch.float32))
+
+
 def inv_scale_sigma2(octave: torch.Tensor, scale: float = 1.2) -> torch.Tensor:
     return scale ** (-2.0 * octave.to(torch.float32))

@@ -201,6 +201,20 @@ def backproject(cam: Camera, uv: torch.Tensor, depth: torch.Tensor) -> torch.Ten
     return unproject(cam, uv) * depth[..., None]
 
 
+def undistort_points(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
+    """Distorted pixels [..., 2] -> ideal-pinhole pixels through K."""
+    rays = unproject(cam, uv)
+    fx, fy, cx, cy = cam.params[:4]
+    return torch.stack([fx * rays[..., 0] + cx, fy * rays[..., 1] + cy], -1)
+
+
 def in_image(cam: Camera, uv: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
     return ((uv[..., 0] >= margin) & (uv[..., 0] < cam.width - margin)
             & (uv[..., 1] >= margin) & (uv[..., 1] < cam.height - margin))
+
+
+def stereo_disparity_u(cam: Camera, Xc: torch.Tensor) -> torch.Tensor:
+    """Right-image u of camera-frame points [..., 3] in a rectified pair:
+    uR = uL - bf / z (a float32 division, as in JAX)."""
+    z = Xc[..., 2]
+    return project(cam, Xc)[..., 0] - torch.full_like(z, cam.bf) / _nz(z)

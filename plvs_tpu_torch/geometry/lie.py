@@ -142,6 +142,18 @@ def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., 0:1] < 0, -1.0, 1.0)
 
 
+def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of quaternions [..., 4] (w, x, y, z)."""
+    w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    w2, x2, y2, z2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], -1)
+
+
 def se3_exp(xi: torch.Tensor):
     """se(3) -> SE(3): [..., 6] (rho, theta) -> (R, t)."""
     rho, theta = xi[..., :3], xi[..., 3:]
@@ -176,6 +188,17 @@ def se3_adjoint(R, t) -> torch.Tensor:
     top = torch.cat([R, hat(t) @ R], -1)
     bot = torch.cat([torch.zeros_like(R), R], -1)
     return torch.cat([top, bot], -2)
+
+
+def se3_from_mat(T: torch.Tensor):
+    """[..., 4, 4] -> (R [..., 3, 3], t [..., 3])."""
+    return T[..., :3, :3], T[..., :3, 3]
+
+
+def se3_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R [..., 3, 3], t [..., 3]) -> [..., 4, 4]."""
+    bottom = R.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(*R.shape[:-2], 1, 4)
+    return torch.cat([torch.cat([R, t[..., None]], -1), bottom], -2)
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,158 @@
 """Synthetic RGB-D sequences with ground truth (numpy / scipy).
 
-A copy of the parts of plvs_tpu/io/synthetic.py the port's tests and chip
-smoke use: the corner-blob and structured-panel textures, the default
+A copy of plvs_tpu/io/synthetic.py: the RGB-D sensor-artifact model, the
+corner-blob, bar-dominated and structured-panel textures, the default
 sweep trajectory, the textured-wall renderer and its two views through a
 calibrated stereo rig, and the four-wall room with its orbit trajectory
-(the loop-closure scene). The renderers' ray tables
-come from the port's own ``cameras.unproject`` on the CPU.
+(the loop-closure scene). The renderers' ray tables come from the port's
+own ``cameras.unproject`` on the CPU.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..geometry import cameras as cam_mod
+
+
+@dataclasses.dataclass
+class SensorModel:
+    """RGB-D sensor-artifact model applied on top of the ideal renderers
+    (bit-equal to the JAX package's, numpy and scipy on the host):
+
+    - photometric: additive Gaussian read noise and a per-frame exposure
+      gain jitter;
+    - motion blur: a 1-D blur of the gray image along the apparent image
+      motion since the previous frame (flow x shutter fraction, capped);
+    - depth quantization: structured-light disparity d = bf / z rounded to
+      ``disparity_step`` px, so depth comes back staircased;
+    - axial depth noise: sigma_z(z) = depth_noise_at_1m * z^2;
+    - edge shadowing: depth invalidated in a band around strong depth
+      discontinuities, plus sparse random speckle dropout.
+    """
+
+    photometric_sigma: float = 2.5   # gray DN
+    exposure_jitter: float = 0.03    # multiplicative gain sd per frame
+    shutter_fraction: float = 0.5    # fraction of inter-frame motion blurred
+    blur_max_px: float = 6.0
+    disparity_step: float = 0.125    # px; 0 disables quantization
+    stereo_bf: float = 40.0          # disparity bf when the camera has none
+    depth_noise_at_1m: float = 0.0015  # m (sigma ~ this * z^2)
+    edge_shadow_px: int = 2          # half-width of the invalid band
+    edge_grad_m: float = 0.10        # depth-jump threshold (m / px)
+    dropout_frac: float = 0.002      # random invalid-pixel speckle
+    seed: int = 0
+
+    def _rng(self, frame_idx: int) -> np.random.Generator:
+        return np.random.default_rng(
+            np.random.SeedSequence([self.seed, frame_idx]))
+
+    def apply(self, gray: np.ndarray, depth: np.ndarray, frame_idx: int,
+              bf: float = 0.0, flow_px: np.ndarray | None = None):
+        """(gray', depth') with sensor artifacts. ``flow_px`` is the
+        apparent image motion (du, dv) since the previous frame for the
+        motion blur; None or a short flow skips the blur."""
+        rng = self._rng(frame_idx)
+        g = gray.astype(np.float32)
+
+        if flow_px is not None and self.shutter_fraction > 0:
+            L = float(np.hypot(*flow_px)) * self.shutter_fraction
+            L = min(L, self.blur_max_px)
+            if L >= 1.0:
+                g = _directional_blur(g, np.asarray(flow_px, np.float64), L)
+
+        gain = 1.0 + self.exposure_jitter * rng.standard_normal()
+        g = g * gain + self.photometric_sigma * \
+            rng.standard_normal(g.shape).astype(np.float32)
+        g = np.clip(g, 0.0, 255.0)
+
+        d = depth.astype(np.float32).copy()
+        valid = d > 1e-6
+
+        if self.edge_shadow_px > 0:
+            from scipy.ndimage import binary_dilation
+
+            gy, gx = np.gradient(np.where(valid, d, 0.0))
+            edge = (np.abs(gy) > self.edge_grad_m) | \
+                   (np.abs(gx) > self.edge_grad_m)
+            edge &= valid
+            if edge.any():
+                band = binary_dilation(edge, iterations=self.edge_shadow_px)
+                valid &= ~band
+
+        if self.depth_noise_at_1m > 0:
+            sig = self.depth_noise_at_1m * np.square(d)
+            d = d + sig * rng.standard_normal(d.shape).astype(np.float32)
+
+        if self.disparity_step > 0:
+            bf_eff = bf if bf > 1e-6 else self.stereo_bf
+            disp = bf_eff / np.where(valid, d, 1.0)
+            disp = np.round(disp / self.disparity_step) * self.disparity_step
+            d = np.where(disp > 1e-6, bf_eff / np.maximum(disp, 1e-6), d)
+
+        if self.dropout_frac > 0:
+            valid &= rng.random(d.shape) >= self.dropout_frac
+
+        return g, np.where(valid, d, 0.0).astype(np.float32)
+
+
+def _directional_blur(img: np.ndarray, direction: np.ndarray,
+                      length_px: float) -> np.ndarray:
+    """Box blur along ``direction`` with total extent ``length_px`` (a line
+    kernel rasterized bilinearly into a small 2-D stencil)."""
+    from scipy.ndimage import convolve
+
+    n = max(int(np.ceil(length_px)), 1)
+    dnorm = np.linalg.norm(direction)
+    u = direction / dnorm if dnorm > 1e-9 else np.array([1.0, 0.0])
+    half = (n - 1) / 2.0
+    r = int(np.ceil(half)) + 1
+    k = np.zeros((2 * r + 1, 2 * r + 1), np.float32)
+    taps = max(2 * n, 2)
+    for s in np.linspace(-half, half, taps):
+        x, y = r + s * u[0], r + s * u[1]
+        x0, y0 = int(np.floor(x)), int(np.floor(y))
+        fx, fy = x - x0, y - y0
+        for dy_, wy in ((0, 1 - fy), (1, fy)):
+            for dx_, wx in ((0, 1 - fx), (1, fx)):
+                k[y0 + dy_, x0 + dx_] += wx * wy
+    k /= k.sum()
+    return convolve(img, k, mode="nearest")
+
+
+def _center_flow(cam: cam_mod.Camera, prev_R, prev_t, prev_depth,
+                 R, t) -> np.ndarray | None:
+    """Apparent image motion (du, dv) of the scene point seen at the image
+    centre of the previous frame (a pinhole approximation on the host; it
+    sets the motion-blur length)."""
+    d0 = float(prev_depth) if prev_depth > 1e-3 else 3.0
+    X_w = prev_R.T @ (np.array([0.0, 0.0, d0], np.float64) - prev_t)
+    X_c = R @ X_w + t
+    if X_c[2] <= 1e-6:
+        return None
+    fx, fy, cx, cy = (float(p) for p in cam.params[:4])
+    u = fx * X_c[0] / X_c[2] + cx
+    v = fy * X_c[1] / X_c[2] + cy
+    return np.array([u - cx, v - cy], np.float64)
+
+
+def _sensor_sequence(scene, poses, fps: float, sensor):
+    """(ts, gray, depth, R, t) per pose, through ``sensor`` when given (the
+    blur follows the centre flow since the previous pose)."""
+    prev = None
+    for i, (R, t) in enumerate(poses):
+        gray, depth = scene.render(R, t)
+        if sensor is not None:
+            flow = None if prev is None else _center_flow(
+                scene.cam, prev[0], prev[1], prev[2], R, t)
+            h, w = depth.shape
+            prev = (R, t, float(depth[h // 2, w // 2]))
+            gray, depth = sensor.apply(gray, depth, i, bf=scene.cam.bf,
+                                       flow_px=flow)
+        yield i / fps, gray, depth, R, t
 
 
 def make_texture(size: int = 1024,
@@ -29,6 +168,37 @@ def make_texture(size: int = 1024,
         h = int(rng.integers(6, 18))
         tex[y: y + h, x: x + w] = rng.uniform(90, 250)
     tex += rng.normal(size=tex.shape).astype(np.float32) * 2.0
+    return np.clip(tex, 0, 255)
+
+
+def make_line_texture(size: int = 1024,
+                      rng: np.random.Generator | None = None,
+                      n_bars: int = 26, n_blobs: int = 40) -> np.ndarray:
+    """Low-corner-density texture dominated by long straight bars: points
+    alone survive on the few blobs but drift, and the line landmarks along
+    the bars tighten the pose solves."""
+    rng = rng or np.random.default_rng(3)
+    tex = np.full((size, size), 55.0, np.float32)
+    for _ in range(n_bars):
+        # a long bar through a random anchor at a random angle
+        ang = rng.uniform(0, np.pi)
+        cx, cy = rng.uniform(0, size, 2)
+        width = float(rng.integers(3, 9))
+        val = float(rng.uniform(140, 250))
+        L = size * 1.5
+        ts = np.linspace(-L / 2, L / 2, int(L))
+        dx, dy = np.cos(ang), np.sin(ang)
+        for off in np.arange(-width / 2, width / 2 + 0.5, 0.5):
+            xs = (cx + ts * dx - off * dy).astype(int) % size
+            ys = (cy + ts * dy + off * dx).astype(int) % size
+            tex[ys, xs] = val
+    # sparse weak blobs keep the point tracker alive
+    xs = rng.integers(8, size - 16, n_blobs)
+    ys = rng.integers(8, size - 16, n_blobs)
+    for x, y in zip(xs, ys):
+        w = int(rng.integers(5, 10))
+        tex[y: y + w, x: x + w] = rng.uniform(90, 200)
+    tex += rng.normal(size=tex.shape).astype(np.float32) * 1.5
     return np.clip(tex, 0, 255)
 
 
@@ -221,10 +391,9 @@ class SyntheticRoom:
         depth[~np.isfinite(depth)] = 0.0
         return gray.reshape(h, w), depth.reshape(h, w)
 
-    def sequence(self, poses, fps: float = 30.0):
-        for i, (R, t) in enumerate(poses):
-            gray, depth = self.render(R, t)
-            yield i / fps, gray, depth, R, t
+    def sequence(self, poses, fps: float = 30.0,
+                 sensor: SensorModel | None = None):
+        return _sensor_sequence(self, poses, fps, sensor)
 
     def wall_normals(self, pts: np.ndarray) -> np.ndarray:
         """Inward unit normal [N, 3] of the wall (x or z = +-half) nearest
@@ -275,11 +444,12 @@ class SyntheticRGBD:
         depth = np.where((a <= 0.05).reshape(h, w), 0.0, depth)
         return gray, depth
 
-    def sequence(self, poses=None, n_frames: int = 60, fps: float = 30.0):
+    def sequence(self, poses=None, n_frames: int = 60, fps: float = 30.0,
+                 sensor: SensorModel | None = None):
+        """(ts, gray, depth, R, t) per pose (``default_trajectory`` of
+        ``n_frames`` without poses), through ``sensor`` when given."""
         poses = poses if poses is not None else default_trajectory(n_frames)
-        for i, (R, t) in enumerate(poses):
-            gray, depth = self.render(R, t)
-            yield i / fps, gray, depth, R, t
+        return _sensor_sequence(self, poses, fps, sensor)
 
 
 # tests/test_stereo_rig.py's KB8 fisheye pair scaled to 640x480: (fx, fy,

@@ -205,6 +205,13 @@ class KeyFrameDatabase:
             w = w / s
         return uniq.astype(np.int32), w.astype(np.float32)
 
+    def bow_of_desc(self, desc: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """Dense L1-normalized tf-idf vector [n_words] of [N, 8] uint32
+        descriptors, computed on the database's device."""
+        words = self.dispatch_quantize(desc)
+        mask = torch.as_tensor(np.asarray(mask, bool), device=self.device)
+        return bow.bow_vector(self.voc, words, mask).cpu().numpy()
+
     # ------------------------------------------------------------------
     def add(self, kf_id: int, words=None) -> bool:
         """Quantize and index a keyframe (``words``: its word ids, when
@@ -264,6 +271,16 @@ class KeyFrameDatabase:
             cand = cand[shared[cand] >= 0.8 * max_common]
         order = np.argsort(-scores[cand], kind="stable")
         return [(int(k), float(scores[k])) for k in cand[order][:top_n]]
+
+    def query(self, vec: np.ndarray, exclude: set[int] = frozenset(),
+              top_n: int = 5, min_score: float = 0.015):
+        """Query by a dense BoW vector (as ``bow_of_desc`` gives): its
+        nonzero words as a sparse query, without the shared-word filter."""
+        words = np.nonzero(vec > 0)[0].astype(np.int32)
+        return self.query_sparse(words, vec[words].astype(np.float32),
+                                 exclude=exclude, top_n=top_n,
+                                 min_score=min_score,
+                                 shared_word_filter=False)
 
     def query_keyframe(self, kf_id: int, top_n: int = 5,
                        min_score: float = 0.015,

@@ -434,6 +434,15 @@ class LocalMapper:
                     else:
                         st.replace_point(p, other)
 
+    def fuse_neighbors(self, kf_id: int, max_neighbors: int = 5):
+        """Merge duplicate landmarks between keyframe ``kf_id`` and its
+        covisible neighbours in one synchronous step (dispatch, fetch,
+        apply) under the store's lock."""
+        with self.store.lock:
+            ctx = self._dispatch_fuse(kf_id, max_neighbors)
+            if ctx is not None:
+                self._apply_fuse(kf_id, ctx, to_host(ctx["out"]))
+
     # ------------------------------------------------------------------
     def cull_keyframes(self, kf_id: int):
         """Remove redundant keyframes: over 90% of their landmarks observed

@@ -34,14 +34,28 @@ class PoseObs(NamedTuple):
     line_mask: torch.Tensor   # [L]
 
 
+def empty_lines(dtype=torch.float32, device=None):
+    """An empty line block: (Xs, Xe, nld [0, 3], inv_sigma2 [0], mask [0])."""
+    z3 = torch.zeros((0, 3), dtype=dtype, device=device)
+    return (z3, z3, z3, torch.zeros((0,), dtype=dtype, device=device),
+            torch.zeros((0,), dtype=torch.bool, device=device))
+
+
 def make_pose_obs(Xw, uvr, inv_sigma2, mask, line_Xs=None, line_Xe=None,
                   line_nld=None, line_inv_sigma2=None,
                   line_mask=None) -> PoseObs:
+    """The observation block. Masked line rows get a zero line and a zero
+    weight: a keyline slot the detector left empty carries non-finite
+    endpoints, and 0 x NaN in the normal equations would turn the whole
+    pose NaN (the JAX package keeps them, and loses such frames)."""
     if line_Xs is None:
-        z3 = Xw.new_zeros((0, 3))
-        line_Xs, line_Xe, line_nld = z3, z3, z3
-        line_inv_sigma2 = Xw.new_zeros((0,))
-        line_mask = torch.zeros(0, dtype=torch.bool, device=Xw.device)
+        line_Xs, line_Xe, line_nld, line_inv_sigma2, line_mask = \
+            empty_lines(Xw.dtype, Xw.device)
+    else:
+        line_nld = torch.where(line_mask[:, None], line_nld,
+                               torch.zeros_like(line_nld))
+        line_inv_sigma2 = torch.where(line_mask, line_inv_sigma2,
+                                      torch.zeros_like(line_inv_sigma2))
     return PoseObs(Xw, uvr, inv_sigma2, mask, line_Xs, line_Xe, line_nld,
                    line_inv_sigma2, line_mask)
 

@@ -69,3 +69,7 @@ class Stopwatch:
                 f"{s['std_ms']:>10.2f}{s['count']:>7}"
             )
         return "\n".join(lines)
+
+    def reset(self):
+        self.samples.clear()
+        self._open.clear()

@@ -372,6 +372,13 @@ def quantize(voc, desc: torch.Tensor) -> torch.Tensor:
     return idx
 
 
+def node_ids(voc: Vocabulary, words: torch.Tensor,
+             levels_up: int = 1) -> torch.Tensor:
+    """Node id ``levels_up`` levels above each word (the FeatureVector
+    nodes that gate a BoW-guided search)."""
+    return torch.div(words, voc.k ** levels_up, rounding_mode="floor")
+
+
 def bow_vector(voc, words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Dense L1-normalized TF-IDF vector [n_words]."""
     ok = mask & (words >= 0)
@@ -384,3 +391,9 @@ def bow_vector(voc, words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def l1_score(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
     """DBoW2 L1 similarity in [0, 1]: 1 - 0.5 |v1 - v2|_1."""
     return 1.0 - 0.5 * (v1 - v2).abs().sum(-1)
+
+
+def score_database(query: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """L1 similarity of one BoW vector [W] against each row of a [K, W]
+    database."""
+    return 1.0 - 0.5 * (db - query[None, :]).abs().sum(-1)

@@ -10,7 +10,9 @@ and the line also gives the live keyframes, points and lines and the
 keyframes culled. The port's chip smoke holds its own ATE to
 max(1.5 x this, this + 1 cm).
 
-    JAX_PLATFORMS=cpu python scripts/reference_ate_rgbd_lines.py [--frames 120] [--local-ba]
+``--first N`` tracks only the first N poses of that sweep (the same step).
+
+    JAX_PLATFORMS=cpu python scripts/reference_ate_rgbd_lines.py [--frames 120] [--first N] [--local-ba]
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=120)
+    ap.add_argument("--first", type=int, default=None,
+                    help="track only the first N poses of the sweep")
     ap.add_argument("--local-ba", action="store_true",
                     help="run the synchronous keyframe backend")
     args = ap.parse_args()
@@ -57,7 +61,8 @@ def main():
                                     tex_scale=420.0)
     states, gt = [], []
     t0 = time.perf_counter()
-    for ts, gray, depth, R, t in scene.sequence(n_frames=args.frames):
+    poses = synthetic.default_trajectory(args.frames)[:args.first]
+    for ts, gray, depth, R, t in scene.sequence(poses):
         state, _, _ = system.track_rgbd(gray, depth, ts)
         states.append(int(state))
         gt.append(-R.T @ t)
@@ -66,7 +71,8 @@ def main():
     gt = np.stack(gt)
     out = {
         "device": "cpu (jax " + jax.__version__ + ")",
-        "frames": args.frames,
+        "frames": len(poses),
+        "sweep_frames": args.frames,
         "all_ok_after_first": all(s == OK for s in states[1:]),
         "ate_rmse_m": evaluation.ate_rmse(est, gt, align=True),
         "ate_rmse_raw_m": evaluation.ate_rmse(est, gt, align=False),

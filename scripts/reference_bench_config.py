@@ -40,7 +40,10 @@ frame finds the fetch still running and extrapolates across it; that
 decides which frames resolve together, and with it the candidates and the
 keyframes.
 
-    JAX_PLATFORMS=cpu python scripts/reference_bench_config.py [--room] [--async] [--inline] [--settled] [--frames N]
+``--first N`` tracks only the first N poses of the wall's sweep of
+``--frames`` poses (the same step).
+
+    JAX_PLATFORMS=cpu python scripts/reference_bench_config.py [--room] [--async] [--inline] [--settled] [--frames N] [--first N]
 """
 
 from __future__ import annotations
@@ -66,6 +69,8 @@ def main():
                     help="per-frame launches return with their outputs "
                          "computed")
     ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--first", type=int, default=None,
+                    help="track only the first N poses of the wall's sweep")
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -131,7 +136,8 @@ def main():
             2048, rng=np.random.default_rng(7))
         scene = synthetic.SyntheticRGBD(cam, wall_z=3.0, texture=tex,
                                         tex_scale=420.0)
-        frames = list(scene.sequence(n_frames=args.frames or 120))
+        frames = list(scene.sequence(synthetic.default_trajectory(
+            args.frames or 120)[:args.first]))
     states = []
     t0 = time.perf_counter()
     for ts, gray, depth, _, _ in frames:

@@ -531,3 +531,40 @@ def test_segment_sums_match_index_add(rng):
     torch.testing.assert_close(tba._onehot_seg_reduce(idx, 60)(v), ref,
                                atol=1e-4, rtol=0)
     assert float(tba._sorted_seg_reduce(idx, 60)(v)[7].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("weight", ["huber_weight", "cauchy_weight",
+                                    "tukey_weight"])
+def test_robust_weights_match_jax(rng, weight):
+    """The IRLS weights on chi2 values around and at the threshold, with a
+    scalar and a per-row delta2: within 1 ulp (float32 division and square
+    root, the same expression in both)."""
+    from plvs_tpu.solvers import robust as jrob
+    from plvs_tpu_torch.solvers import robust as trob
+
+    chi2 = np.concatenate([rng.uniform(0, 20, 200), [0.0, 5.991, 7.815,
+                                                     1e-14, 1e4]])
+    chi2 = chi2.astype(np.float32)
+    for delta2 in (5.991, rng.uniform(1, 10, chi2.shape).astype(np.float32)):
+        want = np.asarray(getattr(jrob, weight)(
+            jnp.asarray(chi2), delta2 if np.isscalar(delta2)
+            else jnp.asarray(delta2)))
+        got = getattr(trob, weight)(
+            torch.from_numpy(chi2), delta2 if np.isscalar(delta2)
+            else torch.from_numpy(delta2)).numpy()
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=1.2e-7, atol=0)
+
+
+def test_empty_lines_like_jax():
+    from plvs_tpu.solvers import pose_opt as jpo
+    from plvs_tpu_torch.solvers import pose_opt as tpo
+
+    for j, t in zip(jpo.empty_lines(), tpo.empty_lines()):
+        assert tuple(t.shape) == tuple(j.shape)
+        assert str(t.dtype).split(".")[-1] == str(j.dtype)
+    obs = tpo.make_pose_obs(torch.zeros((4, 3), dtype=torch.float64),
+                            torch.zeros((4, 3)), torch.ones(4),
+                            torch.ones(4, dtype=torch.bool))
+    assert obs.line_Xs.shape == (0, 3) and obs.line_Xs.dtype == torch.float64
+    assert obs.line_mask.dtype == torch.bool

@@ -448,3 +448,24 @@ def test_search_for_triangulation_equal_inputs(rng):
     assert (np.asarray(j_idx) >= 0).sum() > 100
     np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
     np.testing.assert_array_equal(t_d.numpy(), np.asarray(j_d))
+
+
+@pytest.mark.parametrize("threshold", [7.0, 20.0])
+def test_fast_score_on_the_jax_pyramid(jstack, threshold):
+    """fast_score is fast_score2's low-threshold score: exact."""
+    got = tfast.fast_score(torch.from_numpy(jstack), threshold).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jfast.fast_score(jnp.asarray(jstack), threshold)))
+    assert (got > 0).sum() > 100
+
+
+def test_scale_sigma2_like_jax():
+    oct_ = np.arange(8, dtype=np.int32).repeat(3)
+    for scale in (1.2, 2.0):
+        got = torb.scale_sigma2(torch.from_numpy(oct_), scale).numpy()
+        np.testing.assert_allclose(
+            got, np.asarray(jorb.scale_sigma2(jnp.asarray(oct_), scale)),
+            rtol=2e-7)
+        np.testing.assert_allclose(
+            got * torb.inv_scale_sigma2(torch.from_numpy(oct_), scale).numpy(),
+            1.0, rtol=1e-6)

@@ -124,3 +124,40 @@ def test_camera_from_numpy():
     assert tc == _cams()[2][1]
     assert tc.fx == jc.fx and tc.cy == jc.cy
     _close(tc.K, jc.K)
+
+
+@pytest.mark.parametrize("ci", [0, 1, 2])
+def test_undistort_points_and_stereo_u(rng, ci):
+    """undistort_points through each camera's unproject (radtan and KB8
+    iterate) and the rectified right-image u, both at TOL, pixel outputs
+    relative."""
+    jc, tc = _cams()[ci]
+    X = np.stack([rng.uniform(-1.0, 1.0, 200), rng.uniform(-0.8, 0.8, 200),
+                  rng.uniform(0.5, 4.0, 200)], -1).astype(np.float32)
+    uv = np.asarray(jcam.project(jc, jnp.asarray(X))).astype(np.float32)
+    got = tcam.undistort_points(tc, torch.from_numpy(uv))
+    _close(got, jcam.undistort_points(jc, jnp.asarray(uv)), tol=TOL, rel=TOL)
+    if ci == 0:    # no distortion: the pixels come back
+        _close(got, uv, tol=1e-3)
+    _close(tcam.stereo_disparity_u(tc, torch.from_numpy(X)),
+           jcam.stereo_disparity_u(jc, jnp.asarray(X)), tol=TOL, rel=TOL)
+
+
+def test_quat_mul_and_se3_matrices(tangents, rng):
+    w, rho = tangents
+    q1 = tlie.rotmat_to_quat(tlie.so3_exp(torch.from_numpy(w)))
+    q2 = torch.roll(q1, 1, 0)
+    got = tlie.quat_mul(q1, q2)
+    _close(got, jlie.quat_mul(jnp.asarray(q1.numpy()), jnp.asarray(q2.numpy())))
+    # the product's rotation is the product of the rotations
+    _close(tlie.quat_to_rotmat(got),
+           tlie.quat_to_rotmat(q1) @ tlie.quat_to_rotmat(q2), tol=1e-5)
+    R = tlie.so3_exp(torch.from_numpy(w))
+    t = torch.from_numpy(rho)
+    T = tlie.se3_to_mat(R, t)
+    np.testing.assert_array_equal(
+        T.numpy(), np.asarray(jlie.se3_to_mat(jnp.asarray(R.numpy()),
+                                              jnp.asarray(rho))))
+    Rb, tb = tlie.se3_from_mat(T)
+    np.testing.assert_array_equal(Rb.numpy(), R.numpy())
+    np.testing.assert_array_equal(tb.numpy(), rho)

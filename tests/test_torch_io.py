@@ -488,6 +488,20 @@ def test_stopwatch_report():
     assert st["stage_a"]["count"] == 3 and st["stage_a"]["mean_ms"] >= 1.5
     assert "stage_a" in sw.report()
 
+    # reset() like the JAX package's: samples and open ticks both go
+    from plvs_tpu.utils.profiling import Stopwatch as JStopwatch
+
+    for w in (sw, JStopwatch()):
+        w.tick("open_stage")
+        w.reset()
+        assert w.stats() == {} and not w.samples
+        w.tock("open_stage")     # its tick went with the reset
+        assert w.stats() == {}
+        with w.scope("stage_b"):
+            pass
+        assert list(w.stats()) == ["stage_b"]
+        assert w.stats()["stage_b"]["count"] == 1
+
 
 def test_benchmark_gate_and_aggregation_match_jax():
     from plvs_tpu.io import benchmark as jbm

@@ -319,6 +319,28 @@ def test_global_ba_matches_jax(jax_backend_run, solver):
     assert len(info["window"]) == int(st.kf_mask.sum())
 
 
+def test_fuse_neighbors_matches_jax(jax_backend_run):
+    """``fuse_neighbors`` (the one-shot neighbour fuse) on the map each
+    recorded pass started from: the same observations added and the same
+    landmarks merged, exactly, and at least one pass changed the map."""
+    _, passes = jax_backend_run
+    changed = 0
+    for kf_id, before, _ in passes:
+        jst = _jax_store_from(before)
+        jlocal_mapping.LocalMapper(JCAM, jst, scale=1.2,
+                                   n_levels=STEP_FLAGS["n_levels"],
+                                   use_lines=True).fuse_neighbors(kf_id)
+        st = convert.map_store_from_numpy(before)
+        _port_mapper(st).fuse_neighbors(kf_id)
+        want = _snapshot(jst)
+        for name in ("pt_mask", "pt_n_obs", "obs_pt", "obs_kf", "obs_mask",
+                     "kf_kp_pt", "pt_visible", "pt_found"):
+            np.testing.assert_array_equal(getattr(st, name), want[name],
+                                          err_msg=f"keyframe {kf_id}: {name}")
+        changed += int((want["kf_kp_pt"] != before["kf_kp_pt"]).any())
+    assert changed > 0
+
+
 def test_replace_point_and_line_match_jax(jax_backend_run):
     """Landmark merges in both stores: pairs that share a keyframe (an
     observation dropped) and pairs that do not (observations moved)."""

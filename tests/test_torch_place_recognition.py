@@ -329,3 +329,60 @@ def test_dense_bow_vector_and_l1_score(voc100k, rng):
         np.testing.assert_allclose(got, want, atol=1e-6)
     assert float(tbow.l1_score(torch.from_numpy(tv),
                                torch.from_numpy(tv))) == 1.0
+
+
+@pytest.mark.parametrize("levels_up", [1, 2, 4])
+def test_node_ids_exact(voc100k, rng, levels_up):
+    j, t = voc100k
+    d = _desc(rng, 300)
+    jw = jbow.quantize(j, d)
+    tw = tbow.quantize(t, _twords(d))
+    np.testing.assert_array_equal(
+        tbow.node_ids(t, tw, levels_up).numpy(),
+        np.asarray(jbow.node_ids(j, jw, levels_up)))
+
+
+def test_score_database(voc100k, rng):
+    """One query against a [K, W] database: within 1e-6 (float32 sums over
+    100k words in another order), the query's own row scoring 1."""
+    j, t = voc100k
+    rows = []
+    for _ in range(5):
+        d = _desc(rng, 200)
+        rows.append(np.asarray(jbow.bow_vector(j, jbow.quantize(j, d),
+                                               np.ones(200, bool))))
+    db = np.stack(rows)
+    got = tbow.score_database(torch.from_numpy(db[2]),
+                              torch.from_numpy(db)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jbow.score_database(db[2], db)),
+                               atol=1e-6)
+    assert abs(got[2] - 1.0) < 1e-6 and (got[[0, 1, 3, 4]] < 0.5).all()
+
+
+def test_dense_vector_query_like_native(rng):
+    """``bow_of_desc`` gives the dense vector ``bow_vector`` gives (within
+    1e-6, the same nonzero words); ``query`` with one such vector ranks the
+    database as the JAX package's native index does, scores bit for bit."""
+    _need_native()
+    js, ts = (JMapStore(max_kf=16, max_pts=256, n_kp=128),
+              TMapStore(max_kf=16, max_pts=256, n_kp=128))
+    jdb = jkfdb.KeyFrameDatabase(js)
+    tdb = tkfdb.KeyFrameDatabase(ts, device="cpu")
+    pool = _desc(rng, 300)
+    for _ in range(12):
+        d = pool[rng.integers(0, 300, 128)]
+        m = rng.random(128) < 0.9
+        kf = _add_kf(js, d, m)
+        assert _add_kf(ts, d, m) == kf
+        jdb.add(kf)
+        tdb.add(kf)
+    d = pool[rng.integers(0, 300, 128)]
+    m = rng.random(128) < 0.9
+    jv, tv = jdb.bow_of_desc(d, m), tdb.bow_of_desc(d, m)
+    assert tv.dtype == np.float32 and tv.shape == jv.shape
+    np.testing.assert_array_equal(np.nonzero(tv)[0], np.nonzero(jv)[0])
+    np.testing.assert_allclose(tv, jv, atol=1e-6)
+    for kw in (dict(), dict(top_n=12, min_score=0.0),
+               dict(top_n=3, exclude={0, 5})):
+        got, want = tdb.query(jv, **kw), jdb.query(jv, **kw)
+        assert got == want and len(got) > 0, (kw, got, want)

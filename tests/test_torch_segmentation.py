@@ -224,6 +224,31 @@ def test_label_update_exact(labelled, rng):
     assert flipped.any() and (np.asarray(jc) != conf0).any()
 
 
+@pytest.mark.parametrize("max_conf", [64.0, 2.0])
+def test_integrate_blocks_labels_exact(labelled, rng, max_conf):
+    """The public fixed-shape label entry on the volume's blocks, at the
+    default confidence cap and at one that binds: exact, as above."""
+    jvol, tvol, frames = labelled
+    n = jvol.n_blocks
+    _, _, d, R, t = frames[2]
+    img = rng.integers(0, 4, d.shape).astype(np.int32)
+    lab0, conf0 = jvol.label[:n].copy(), jvol.label_conf[:n].copy()
+    jl, jc = jtsdf.integrate_blocks_labels(
+        jnp.asarray(jvol.block_coords[:n]), jnp.asarray(lab0),
+        jnp.asarray(conf0), jnp.asarray(d), jnp.asarray(img),
+        jnp.asarray(R), jnp.asarray(t), JCAM, VOXEL, jvol.trunc,
+        max_conf=max_conf)
+    lab_t, conf_t = torch.from_numpy(lab0), torch.from_numpy(conf0)
+    tl, tc = ttsdf.integrate_blocks_labels(
+        torch.from_numpy(jvol.block_coords[:n]), lab_t, conf_t,
+        torch.from_numpy(d), torch.from_numpy(img), torch.from_numpy(R),
+        torch.from_numpy(t), TCAM, VOXEL, tvol.trunc, max_conf=max_conf)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(lab_t.numpy(), lab0)   # inputs untouched
+    assert float(tc.max()) <= max_conf and (tc.numpy() != conf0).any()
+
+
 def test_voxel_label_queries_exact(labelled, rng):
     """On one carried-across state: labels_at (points on the surface,
     random points and unallocated space), segmented_cloud at two

@@ -169,6 +169,78 @@ def test_disparity_matches_jnp_path_away_from_borders(rng):
                       max_disp=D, method="census")
 
 
+@pytest.fixture
+def pallas_route(monkeypatch):
+    """The JAX ``disparity`` on its TPU route: ``use_pallas()`` patched
+    true and the Pallas kernel run in interpret mode; a fresh jit of the
+    function so no trace of its CPU route is reused."""
+    import functools
+
+    import jax
+    import plvs_tpu.ops
+
+    traced = []
+    kernel = functools.partial(jst.disparity_wta_pallas, interpret=True)
+
+    def interpreted(*a, **kw):
+        traced.append(kw.get("max_disp"))
+        return kernel(*a, **kw)
+
+    monkeypatch.setattr(plvs_tpu.ops, "use_pallas", lambda: True)
+    monkeypatch.setattr(jst, "disparity_wta_pallas", interpreted)
+    return jax.jit(jsd.disparity.__wrapped__,
+                   static_argnames=("max_disp",)), traced
+
+
+def test_dense_map_matches_the_pallas_route(pallas_route):
+    """The port's disparity (K3's plain version, the kernel's border
+    semantics) against the JAX package's Pallas route at 96x128 with 32
+    disparities, borders included: exact (measured: bit-equal, validity
+    included). Then one TSDF integration of each package's depth: the same
+    blocks, tsdf and weight within 1e-5 (float32 voxel projections in
+    another order, as tests/test_torch_dense.py states)."""
+    args, kw = (120.0, 120.0, 64.0, 48.0), dict(width=128, height=96,
+                                                bf=24.0)
+    scene = tsyn.SyntheticRGBD(tcam.pinhole(*args, **kw), wall_z=3.0,
+                               texture=tsyn.make_structured_texture(
+                                   1024, rng=np.random.default_rng(7)),
+                               tex_scale=220.0)
+    R, t = tsyn.default_trajectory(12)[4]
+    left, _ = scene.render(R, t)
+    right, _ = scene.render(R, t - np.array([kw["bf"] / args[0], 0, 0],
+                                            np.float32))
+    route, traced = pallas_route
+    ref = np.asarray(route(jnp.asarray(left), jnp.asarray(right),
+                           max_disp=32))
+    assert traced == [32]     # the JAX call took the Pallas kernel
+    out = tsd.disparity(torch.from_numpy(left), torch.from_numpy(right),
+                        max_disp=32).numpy()
+    np.testing.assert_array_equal(out, ref)
+    assert (out > 0).mean() > 0.5 and (out[:, :32] <= 0).any()
+    assert abs(np.median(out[out > 0]) - kw["bf"] / 3.0) < 0.5
+
+    from plvs_tpu.dense.tsdf import TSDFVolume as JVolume
+    from plvs_tpu_torch.dense.tsdf import TSDFVolume as TVolume
+
+    jd = np.asarray(jsd.disparity_to_depth(jnp.asarray(ref), kw["bf"]))
+    td = tsd.disparity_to_depth(torch.from_numpy(out), kw["bf"]).numpy()
+    np.testing.assert_array_equal(td, jd)
+    color = np.repeat(left[..., None], 3, -1)
+    jvol = JVolume(jcam.pinhole(*args, **kw), voxel_size=0.04,
+                   max_blocks=2048)
+    tvol = TVolume(tcam.pinhole(*args, **kw), voxel_size=0.04,
+                   max_blocks=2048, device="cpu")
+    jvol.integrate(jd, color, R, t)
+    tvol.integrate(td, color, R, t)
+    n = jvol.n_blocks
+    assert n > 20 and tvol.n_blocks == n
+    np.testing.assert_array_equal(tvol.block_coords, jvol.block_coords)
+    for name in ("tsdf", "weight"):
+        np.testing.assert_allclose(getattr(tvol, name)[:n],
+                                   getattr(jvol, name)[:n], atol=1e-5,
+                                   err_msg=name)
+
+
 def test_disparity_to_depth_exact(rng):
     disp = rng.uniform(-2, 60, (24, 40)).astype(np.float32)
     disp[3, :5] = 0.0
