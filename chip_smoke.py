@@ -63,7 +63,9 @@ backend) over phase 2's scene, then ``flush()`` — and holds it to the JAX
 package's run of it: every frame resolved and OK, every queue empty, the
 ATE, the live map and the dense map, and K2 launched once per line frame
 built; it prints what ``track_rgbd`` costs the tracking thread (p50, p90),
-the resolves, the backend's ``_stage_stats`` and largest backlog. Phase 8
+the resolves (the ``resolve.wait`` and ``resolve.finish`` spans of its
+stopwatch: read-back waits, frames per group, finishes) and the backend's
+largest backlog. Phase 8
 is the same with the mapper actor (``async_mapping``, bench.py's
 PLVS_BENCH_ASYNC=1 path) over the same 20 frames, held to the median of
 five JAX runs (every frame OK, the ATE bound, the live and dense maps),
@@ -1360,7 +1362,7 @@ def _phase7(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
     from plvs_tpu_torch.slam import frame as frame_mod
 
     system = System(cam, SystemConfig(**_bench_flags()), device="cuda")
-    system.tracker.timing = []     # (fetch wait s, finish s, frames) a group
+    system.stopwatch.spans = []
     frames = _short_sweep(scene)
     line_frames = []
     build_lines = frame_mod.build_frame_lines
@@ -1382,8 +1384,12 @@ def _phase7(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
     mix = dict(hamming.shapes)
     by_shape = brackets.ms_by_shape()
     ms = run["ms"][1:]
-    resolve = np.asarray(system.stopwatch.samples.get("resolve", [])) * 1e3
-    groups = np.asarray(system.tracker.timing).reshape(-1, 3)
+    sw = system.stopwatch
+    resolve = np.asarray(sw.samples.get("resolve", [])) * 1e3
+    waits = np.asarray(sw.samples.get("resolve.wait", [])) * 1e3
+    finishes = np.asarray(sw.samples.get("resolve.finish", [])) * 1e3
+    group_frames = [s_.attrs["frames"] for s_ in sw.spans
+                    if s_.name == "resolve.wait"]
     print(f"phase 7: bench.py's configuration, {len(frames)} frames 640x480 "
           f"(pipelined, depth 4, overlap thread, interleaved backend): "
           f"track_rgbd's return on the tracking thread p50 "
@@ -1391,11 +1397,10 @@ def _phase7(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
           f"max {ms.max():.2f} (first frame {run['ms'][0]:.1f}); resolve "
           f"{resolve.sum():.2f} ms in {len(resolve)} calls (median "
           f"{np.median(resolve) if len(resolve) else 0.0:.3f}; "
-          f"{len(groups)} groups of {groups[:, 2].mean():.2f} frames, fetch "
-          f"waits {groups[:, 0].sum() * 1e3:.2f} ms, finishes "
-          f"{groups[:, 1].sum() * 1e3:.2f} ms); flush "
-          f"{run['flush_ms']:.2f} ms; _stage_stats {system._stage_stats}; "
-          f"largest backlog {run['max_backlog']}; launches {launches}, "
+          f"{len(group_frames)} groups of {np.mean(group_frames):.2f} frames, "
+          f"fetch waits {waits.sum():.2f} ms, finishes {finishes.sum():.2f} "
+          f"ms); flush {run['flush_ms']:.2f} ms; largest backlog "
+          f"{run['max_backlog']}; launches {launches}, "
           f"{len(line_frames)} line frames built (K1 brackets' spins inside "
           "the run)")
     out = _hold_run(7, system, frames, REF_BENCH_ATE_M, BENCH_ATE_BOUND_M)

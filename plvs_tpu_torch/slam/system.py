@@ -72,6 +72,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -110,6 +111,22 @@ def _quantize(gray: np.ndarray, depth: np.ndarray, dec: int = 1):
     d = np.asarray(depth, np.float32)[::dec, ::dec]
     d16 = (np.clip(d, 0.0, 65.0) * 1000.0).astype(np.uint16)
     return g8, np.ascontiguousarray(d16)
+
+
+def _root_span(name: str, per_frame: bool = False):
+    """Time a public call of the System as the root scope ``name``; a
+    tracking call's carries its frame's sequence number (``frame``, the
+    tracker's counter, which every scope of the frame carries up to its
+    resolution). The scope stays on the stopwatch installed when the call
+    began (``reset`` installs a new one)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def call(self, *args, **kwargs):
+            attrs = {"frame": self.tracker.frame_id} if per_frame else {}
+            with self.stopwatch.scope(name, **attrs):
+                return fn(self, *args, **kwargs)
+        return call
+    return deco
 
 
 def _pack_rgbd(gray: np.ndarray, depth: np.ndarray, dec: int = 1):
@@ -279,11 +296,9 @@ class System:
                 use_segmentation=c.dense_segmentation,
                 mesh_every=c.dense_mesh_every,
                 fixed_shapes=c.backend_fixed_shapes, device=self.device)
-        # interleaved backend: the FIFO of staged keyframe generators, why
-        # each stage advanced (fetch done / deadline / forced catch-up), and
+        # interleaved backend: the FIFO of staged keyframe generators and
         # the helper threads that wait on the stages' fetches
         self._backend_q = collections.deque()
-        self._stage_stats = {"ready": 0, "deadline": 0, "forced": 0}
         self._backend_pool = None
         # per-stage timing (host clock; no synchronisation unless the
         # caller installs a stopwatch with a sync device)
@@ -320,9 +335,10 @@ class System:
             self.actor = MapperActor(self)
 
     def set_stopwatch(self, stopwatch: Stopwatch):
-        """Time the system's stages, the local mapper's and the dense
-        mapper's through ``stopwatch``."""
+        """Time the system's stages, the tracker's, the local mapper's and
+        the dense mapper's through ``stopwatch``."""
         self.stopwatch = stopwatch
+        self.tracker.stopwatch = stopwatch
         self.local_mapper.stopwatch = stopwatch
         if self.loop_closer is not None:
             self.loop_closer.stopwatch = stopwatch
@@ -350,6 +366,7 @@ class System:
     def deactivate_localization_mode(self):
         self.tracker.only_tracking = False
 
+    @_root_span("system.reset")
     def reset(self):
         """Drop every map and restart, rebuilt from the constructor's
         arguments (the rig, the IMU calibration and the device survive).
@@ -421,20 +438,24 @@ class System:
               if c.use_lines else None)
         return fr, fl
 
+    @_root_span("system.track_rgbd", per_frame=True)
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray, timestamp: float,
                    imu_samples=None):
         """Track one RGB-D frame (gray [H, W], depth [H, W] metres; with
         ``use_imu``, ``imu_samples`` [(t, gyro[3], acc[3])] up to the
         frame); returns (state, Rcw, tcw)."""
-        gray = self._maybe_scale(gray)
-        depth = self._maybe_scale(depth, nearest=True)
+        with self.stopwatch.scope("frame.pack"):
+            gray = self._maybe_scale(gray)
+            depth = self._maybe_scale(depth, nearest=True)
         self._imu_pre_frame(timestamp, imu_samples)
         if self.actor is not None:
             self.actor.apply_pending_correction()
         self._resolve_pipeline()
         res = None
         if self.tracker.state == OK:
-            planes = _pack_rgbd(gray, depth, self.config.depth_upload_decimation)
+            with self.stopwatch.scope("frame.pack"):
+                planes = _pack_rgbd(gray, depth,
+                                    self.config.depth_upload_decimation)
             if planes is not None:
                 with self.stopwatch.scope("track"):
                     res = self.tracker.process_frame_packed(*planes,
@@ -447,6 +468,7 @@ class System:
         payload = ("rgbd", gray, depth) if self.dense_mapper else None
         return self._finish_frame(res, timestamp, payload)
 
+    @_root_span("system.track_stereo", per_frame=True)
     def track_stereo(self, gray_l: np.ndarray, gray_r: np.ndarray,
                      timestamp: float, imu_samples=None):
         """Track one stereo pair (gray [H, W] each, float32 as given —
@@ -481,6 +503,7 @@ class System:
         payload = ("stereo", gl, gr) if self.dense_mapper else None
         return self._finish_frame(res, timestamp, payload)
 
+    @_root_span("system.track_monocular", per_frame=True)
     def track_monocular(self, gray: np.ndarray, timestamp: float,
                         imu_samples=None):
         """Track one monocular frame (gray [H, W]; ``imu_samples`` as for
@@ -598,6 +621,7 @@ class System:
         if force:
             self._drain_backend()
 
+    @_root_span("system.flush")
     def flush(self):
         """Finish every queued frame and backend stage (the end of a
         sequence; the trajectory exports and ``shutdown`` call it)."""
@@ -702,6 +726,7 @@ class System:
         first and rides the local mapper's first fetch."""
         fetch = submit if submit is not None else SyncFetch()
         st = self.store
+        uid = int(st.kf_uid[kf_id])
         words_out = (self.kfdb.dispatch_quantize(st.kf_kp_desc[kf_id])
                      if self.loop_closer is not None else None)
         words = None
@@ -710,7 +735,7 @@ class System:
                 kf_id, extra_fetch=words_out, submit=submit)
             while True:
                 try:
-                    with self.stopwatch.scope("local_mapping"):
+                    with self.stopwatch.scope("local_mapping", kf=uid):
                         wait = next(lm_gen)
                 except StopIteration as stop:
                     words = stop.value
@@ -727,7 +752,7 @@ class System:
                 kind, kf_id, a, b, st.kf_R[kf_id], st.kf_t[kf_id], fetch)
             while True:
                 try:
-                    with self.stopwatch.scope("dense_mapping"):
+                    with self.stopwatch.scope("dense_mapping", kf=uid):
                         wait = next(d_gen)
                 except StopIteration:
                     break
@@ -735,7 +760,7 @@ class System:
         if self.loop_closer is None:
             self.kfdb.add(kf_id)
             return None
-        with self.stopwatch.scope("loop_closing"):
+        with self.stopwatch.scope("loop_closing", kf=uid):
             info = self.loop_closer.process_keyframe(kf_id, words=words)
         if info is None:
             return None
@@ -747,16 +772,16 @@ class System:
             self.inertial.vi_local_ba(self.cam, st, kf_id, window=16)
         if self.config.global_ba_on_loop and self.config.local_ba:
             lm = self.local_mapper
-            with self.stopwatch.scope("global_ba"):
+            with self.stopwatch.scope("global_ba", kf=uid):
                 gctx = lm.global_ba_dispatch()
             info["global_ba"] = None
             if gctx is not None:
                 gfut = fetch(lm.ba_outs(gctx))
                 yield gfut
-                with self.stopwatch.scope("global_ba"):
+                with self.stopwatch.scope("global_ba", kf=uid):
                     info["global_ba"] = lm.ba_finish(gctx, gfut.result())
         if self.dense_mapper is not None:
-            with self.stopwatch.scope("dense.rebuild"):
+            with self.stopwatch.scope("dense.rebuild", kf=uid):
                 self.dense_mapper.rebuild(
                     lambda k: (st.kf_R[k], st.kf_t[k])
                     if st.kf_mask[k] else (None, None))
@@ -811,11 +836,6 @@ class System:
             head["age"] += 1
             if head["age"] < self.BACKEND_STAGE_DEADLINE:
                 return
-            self._stage_stats["deadline"] += 1
-        elif w is not None and force and not w.done():
-            self._stage_stats["forced"] += 1
-        else:
-            self._stage_stats["ready"] += 1
         head["age"] = 0
         head["wait"] = None
         try:

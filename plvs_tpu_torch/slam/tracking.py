@@ -55,13 +55,18 @@ its row. With ``overlap_fetch`` the window's read-back is waited on by a
 helper thread (``utils/fetch.py``) and the newest group may stay in flight
 until the next drain. The candidate tables a queued frame uses are a
 snapshot taken when it was assembled (copied on the CPU too, where a tensor
-made from a numpy array shares its memory).
+made from a numpy array shares its memory). The System's Stopwatch, handed
+to the tracker, times each frame's launch (``resolve.launch``, its stages
+``frame.orb``, ``frame.lines`` and ``frame.match_pose``), each group's
+read-back (``resolve.wait``) and each frame's finish with its
+``on_resolved`` callback (``resolve.finish``), under the frame's
+sequence number.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -358,18 +363,26 @@ def _frame_track_rgbd_pl(cam, g8, d16, meta, pt_tbl, ln_tbl,
                          num_features: int, n_levels: int, scale: float,
                          max_lines: int | None, icap: int, lcap: int,
                          line_weight: float = 1.0,
-                         check_rotation: bool = False, prior_info=None):
+                         check_rotation: bool = False, prior_info=None,
+                         stage=contextlib.nullcontext):
     """The per-frame RGB-D program: decompression + ORB extraction + line
     extraction (``max_lines=None``: points only) + guided matching + joint
     pose solve. Returns (packed_track_out, Frame, FrameLines | None), all
-    on the device."""
-    gray, depth = _decompress_packed(g8, d16)
-    fr = frame_mod.build_frame_rgbd(gray, depth, cam, num_features,
-                                    n_levels, scale)
-    fl = (None if max_lines is None
-          else frame_mod.build_frame_lines(gray, depth, cam, max_lines))
-    out = _track_frame_tables(cam, meta, pt_tbl, ln_tbl, fr, fl, icap, lcap,
-                              scale, line_weight, check_rotation, prior_info)
+    on the device. ``stage(name)`` is a context manager around each of the
+    three stages (the tracker's Stopwatch scopes ``frame.orb``,
+    ``frame.lines``, ``frame.match_pose``)."""
+    with stage("frame.orb"):
+        gray, depth = _decompress_packed(g8, d16)
+        fr = frame_mod.build_frame_rgbd(gray, depth, cam, num_features,
+                                        n_levels, scale)
+    fl = None
+    if max_lines is not None:
+        with stage("frame.lines"):
+            fl = frame_mod.build_frame_lines(gray, depth, cam, max_lines)
+    with stage("frame.match_pose"):
+        out = _track_frame_tables(cam, meta, pt_tbl, ln_tbl, fr, fl, icap,
+                                  lcap, scale, line_weight, check_rotation,
+                                  prior_info)
     return out, fr, fl
 
 
@@ -424,7 +437,7 @@ class Tracker:
         self._inflight = []
         self._fetch_pool = None
         self.on_resolved = None
-        self.timing = None  # optional list of (fetch_s, finish_s, n)
+        self.stopwatch = None  # optional stage timing (.scope(name))
         self.fixed_shapes = False
         self.num_features = num_features
         self.local_pts_cap = local_pts_cap
@@ -481,6 +494,11 @@ class Tracker:
         self.max_fov_centers_distance = max_fov_centers_distance
         self._kf_fov_center: dict[int, np.ndarray] = {}
         self.min_init_pts = min_init_pts
+
+    def _scope(self, name: str, **attrs):
+        if self.stopwatch is None:
+            return contextlib.nullcontext()
+        return self.stopwatch.scope(name, **attrs)
 
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -829,20 +847,22 @@ class Tracker:
         rows = torch.from_numpy(np.stack([c["row"] for c in group])).to(
             self.device)
         for row, c in zip(rows, group):
-            n_g = int(np.prod(c["g8_shape"]))
-            n_d = 2 * int(np.prod(c["d16_shape"]))
-            g8 = row[:n_g].view(c["g8_shape"])
-            d16 = (row[n_g:n_g + n_d].view(torch.int16).to(torch.int32)
-                   & 0xFFFF).view(c["d16_shape"])
-            meta = row[n_g + n_d:].view(torch.int32)
-            out, fr, fl = _frame_track_rgbd_pl(
-                self.cam, g8, d16, meta, c["pt_tbl"], c["ln_tbl"],
-                num_features=self.num_features, n_levels=self.n_levels,
-                scale=self.scale,
-                max_lines=self.max_keylines if c["use_pl"] else None,
-                icap=c["icap"], lcap=c["lcap"],
-                line_weight=self.line_track_weight,
-                check_rotation=self.check_rotation, prior_info=c["prior"])
+            with self._scope("resolve.launch", frame=c["seq"]):
+                n_g = int(np.prod(c["g8_shape"]))
+                n_d = 2 * int(np.prod(c["d16_shape"]))
+                g8 = row[:n_g].view(c["g8_shape"])
+                d16 = (row[n_g:n_g + n_d].view(torch.int16).to(torch.int32)
+                       & 0xFFFF).view(c["d16_shape"])
+                meta = row[n_g + n_d:].view(torch.int32)
+                out, fr, fl = _frame_track_rgbd_pl(
+                    self.cam, g8, d16, meta, c["pt_tbl"], c["ln_tbl"],
+                    num_features=self.num_features, n_levels=self.n_levels,
+                    scale=self.scale,
+                    max_lines=self.max_keylines if c["use_pl"] else None,
+                    icap=c["icap"], lcap=c["lcap"],
+                    line_weight=self.line_track_weight,
+                    check_rotation=self.check_rotation,
+                    prior_info=c["prior"], stage=self._scope)
             c.update(out=out, fr=fr, fl=fl, n_kp=int(fr.kp.xy.shape[0]),
                      n_kl=int(fl.kl.sp.shape[0]) if c["use_pl"] else None)
 
@@ -958,17 +978,15 @@ class Tracker:
                     and not self._inflight[0][1].done()):
                 break
             group, fut, outs = self._inflight.pop(0)
-            t0 = time.perf_counter()
-            bufs = fut.result() if fut is not None else fetch_to_host(outs)
-            t1 = time.perf_counter()
+            with self._scope("resolve.wait", frames=len(group)):
+                bufs = (fut.result() if fut is not None
+                        else fetch_to_host(outs))
             for c, buf in zip(group, bufs):
-                res = self._finish_fused(buf, c)
-                if self.on_resolved is not None:
-                    self.on_resolved(res, c["timestamp"], c["seq"])
+                with self._scope("resolve.finish", frame=c["seq"]):
+                    res = self._finish_fused(buf, c)
+                    if self.on_resolved is not None:
+                        self.on_resolved(res, c["timestamp"], c["seq"])
                 done += 1
-            if self.timing is not None:
-                self.timing.append((t1 - t0, time.perf_counter() - t1,
-                                    len(group)))
         return done
 
     def _track(self, fr: frame_mod.Frame, timestamp: float,

@@ -19,6 +19,11 @@ from ..geometry import cameras as cam_mod
 from ..geometry import lie
 from . import robust
 
+# pose_optimize calls, and the Gauss-Newton iterations they ran (the one
+# whose step met the exit included)
+solves = 0
+iterations = 0
+
 
 class PoseObs(NamedTuple):
     """Fixed-capacity observation block for one frame."""
@@ -130,6 +135,8 @@ def pose_optimize(cam: cam_mod.Camera, R0: torch.Tensor, t0: torch.Tensor,
     JAX package; unused by the RGB-D slice, which passes None).
 
     Returns (R, t, point_inlier_mask, line_inlier_mask, num_inliers)."""
+    global solves, iterations
+    solves += 1
     has_prior = prior_info is not None
     has_lines = obs.line_Xs.shape[0] > 0
     eye6 = torch.eye(6, dtype=R0.dtype, device=R0.device)
@@ -139,6 +146,7 @@ def pose_optimize(cam: cam_mod.Camera, R0: torch.Tensor, t0: torch.Tensor,
     for round_idx in range(rounds):
         use_robust = round_idx < rounds - 1
         for _ in range(iters_per_round):
+            iterations += 1
             res, J, ok, is_stereo = _point_residual_jac(cam, R, t, obs)
             w = obs.inv_sigma2 * (ok & in_pts)
             if use_robust:

@@ -1,15 +1,26 @@
-"""Stage timing: tick/tock stopwatch and per-stage statistics.
+"""Stage timing: tick/tock stopwatch, per-stage statistics and span records.
 
 Counterpart of plvs_tpu/utils/profiling.py. Device work is asynchronous
 under PyTorch too, so a scope may synchronise a device before it stops the
 clock (``block_on``: the device whose queued work is charged to the stage);
 a stopwatch made with ``sync_device`` synchronises that device at both ends
 of every scope, so each stage holds its own device time.
+
+While ``Stopwatch.spans`` is a list, every scope also appends a
+:class:`Span` to it: its interval on ``time.time_ns`` (the clock
+``torch.profiler`` stamps its events with, so a span can be laid over a
+profiler trace), the enclosing scope open on the same thread, the thread's
+OS id (the id the profiler's CUDA runtime events carry) and the scope's
+attributes (``frame``: the tracker's sequence number of the frame the scope
+works on; ``kf``: the keyframe's uid). ``spans`` is None by default, and
+then nothing is recorded.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import threading
 import time
 from collections import defaultdict
 
@@ -22,28 +33,72 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+@dataclasses.dataclass(slots=True)
+class Span:
+    """One scope's record: ``parent`` is the index in ``Stopwatch.spans``
+    of the innermost scope open on the same thread when it started (-1 at
+    a root); ``end_ns`` is None while it is open."""
+
+    name: str
+    start_ns: int
+    end_ns: int | None
+    parent: int
+    thread: int
+    attrs: dict
+
+
 class Stopwatch:
-    """Accumulates wall-time samples per named stage."""
+    """Accumulates wall-time samples per named stage (and span records
+    while ``spans`` is a list)."""
 
     def __init__(self, sync_device=None):
         self.samples: dict[str, list[float]] = defaultdict(list)
-        self._open: dict[str, float] = {}
+        self.spans: list[Span] | None = None
         self.sync_device = sync_device
+        # per thread: the open scopes, innermost last, each
+        # [name, perf_counter start, Span | None, index in spans]
+        self._stacks: dict[int, list] = {}
+        self._lock = threading.Lock()
+
+    def _stack(self) -> list:
+        return self._stacks.setdefault(threading.get_ident(), [])
 
     def tick(self, name: str):
         _sync(self.sync_device)
-        self._open[name] = time.perf_counter()
+        stack = self._stack()
+        spans = self.spans
+        rec, idx = None, -1
+        if spans is not None:
+            parent = next((e[3] for e in reversed(stack) if e[2] is not None),
+                          -1)
+            rec = Span(name, time.time_ns(), None, parent,
+                       threading.get_native_id(), {})
+            with self._lock:
+                idx = len(spans)
+                spans.append(rec)
+        stack.append([name, time.perf_counter(), rec, idx])
 
     def tock(self, name: str, block_on=None):
         _sync(block_on)
         _sync(self.sync_device)
-        t0 = self._open.pop(name, None)
-        if t0 is not None:
-            self.samples[name].append(time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        stack = self._stack()
+        for i in range(len(stack) - 1, -1, -1):
+            if stack[i][0] == name:
+                _, t0, rec, _ = stack.pop(i)
+                if rec is not None:
+                    rec.end_ns = time.time_ns()
+                self.samples[name].append(t1 - t0)
+                return
 
     @contextlib.contextmanager
-    def scope(self, name: str, block_on=None):
+    def scope(self, name: str, block_on=None, **attrs):
+        """Time the block as stage ``name``; ``attrs`` go into its span."""
         self.tick(name)
+        if attrs and self.spans is not None:
+            rec = self._stack()[-1][2]
+            if rec is not None:
+                rec.attrs.update(attrs)
         try:
             yield
         finally:
@@ -71,5 +126,8 @@ class Stopwatch:
         return "\n".join(lines)
 
     def reset(self):
+        """Drop the samples, the open scopes and the recorded spans."""
         self.samples.clear()
-        self._open.clear()
+        self._stacks.clear()
+        if self.spans is not None:
+            self.spans.clear()

@@ -13,8 +13,9 @@ own float32 solve moves a window's map by up to 1e-2 (that file's bounds),
 which moves the next frames' poses by millimetres, and the runtime is what
 is compared here. Then, after every frame, the provisional pose agrees within 1e-4
 (float32 sums in another order in the tracking program), and the queued
-frames, the keyframes made, the backend's backlog and its ``_stage_stats``
-(the stages stepped) are equal. The resolved trajectory, the maps and the
+frames, the keyframes made, the backend's backlog and the stages it stepped
+(by why each advanced: the JAX System's ``_stage_stats``, counted on the
+port's queue by ``_count_stage_steps``) are equal. The resolved trajectory, the maps and the
 dense maps are held to the bounds of tests/test_torch_system.py and
 tests/test_torch_local_mapping.py.
 
@@ -81,7 +82,32 @@ def _frames(n=N_FRAMES):
     return list(scene.sequence(tsyn.default_trajectory(36)[:n]))
 
 
-def _drive(system, frames):
+def _count_stage_steps(system):
+    """Count the port's interleaved-backend steps as the JAX System's
+    ``_stage_stats`` does: a stage advanced because its fetch was done (or
+    it had none), at its deadline, or forced. Read from the queue's head
+    before each ``_step_backend``; the counts are the wrapper's ``stats``."""
+    stats = {"ready": 0, "deadline": 0, "forced": 0}
+    step = system._step_backend
+
+    def counted(force=False):
+        if system._backend_q:
+            head = system._backend_q[0]
+            w = head["wait"]
+            if w is None or w.done():
+                stats["ready"] += 1
+            elif force:
+                stats["forced"] += 1
+            elif head["age"] + 1 >= system.BACKEND_STAGE_DEADLINE:
+                stats["deadline"] += 1
+        return step(force)
+
+    counted.stats = stats
+    system._step_backend = counted
+    return stats
+
+
+def _drive(system, frames, stage_stats):
     """Track every frame, recording after each one what the caller got and
     the runtime's queues; then flush."""
     rec = []
@@ -91,7 +117,7 @@ def _drive(system, frames):
                     "pending": len(system.tracker._pending),
                     "inflight": len(system.tracker._inflight),
                     "backlog": len(system._backend_q),
-                    "stats": dict(system._stage_stats),
+                    "stats": dict(stage_stats),
                     "kfs": int(system.store._next_kf_uid)})
     system.flush()
     dm = system.dense_mapper
@@ -110,10 +136,10 @@ def runs(request):
     tsys = TSystem(tcam.pinhole(*CAM_ARGS, **CAM_KW), TConfig(**flags),
                    device="cpu")
     tsys._submit_backend_fetch = SyncFetch()
-    jres = _drive(jsys, frames)
+    jres = _drive(jsys, frames, jsys._stage_stats)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tlocal_mapping.ba, "bundle_adjust", _jax_solver)
-        tres = _drive(tsys, frames)
+        tres = _drive(tsys, frames, _count_stage_steps(tsys))
     gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
     return jres, tres, gt, jsys, tsys, request.param
 
@@ -159,12 +185,12 @@ def test_queues_and_keyframe_decisions_agree(runs):
 
 def test_backend_stages_agree(runs):
     """The interleaved backend, frame by frame: the same backlog and the
-    same _stage_stats (so the same stages stepped per frame)."""
+    same stage steps by reason (so the same stages stepped per frame)."""
     (jr, *_), (tr, *_), _, jsys, tsys, _ = runs
     assert [r["backlog"] for r in tr] == [r["backlog"] for r in jr]
     assert [r["stats"] for r in tr] == [r["stats"] for r in jr]
-    assert tsys._stage_stats == jsys._stage_stats
-    assert tsys._stage_stats["ready"] > tr[-1]["kfs"]
+    assert tsys._step_backend.stats == jsys._stage_stats
+    assert tsys._step_backend.stats["ready"] > tr[-1]["kfs"]
 
 
 def test_resolved_trajectory_agrees(runs):
@@ -208,12 +234,12 @@ def test_flush_is_idempotent(runs):
     empty."""
     *_, tsys, _ = runs
     traj = tsys.trajectory_tum()
-    stats = dict(tsys._stage_stats)
+    stats = dict(tsys._step_backend.stats)
     tsys.flush()
     tsys.flush()
     assert not tsys.tracker._pending and not tsys.tracker._inflight
     assert not tsys._backend_q and not tsys._pending_payloads
-    assert tsys._stage_stats == stats
+    assert tsys._step_backend.stats == stats
     np.testing.assert_array_equal(tsys.trajectory_tum(), traj)
 
 
