@@ -17,7 +17,14 @@ call, and K1's library yardsticks (the +-1 GEMM that the JAX package runs
 for big products, as ``torch._int_mm`` and as ``torch.mm`` in bf16, each
 checked equal to K1); checks with torch.profiler that one call of each
 kernel runs exactly one device kernel; and measures the device memory one
-K3 call adds. Phase 2 drives slice 1's path —
+K3 call adds. The pose solve's kernel (``csrc/pose_opt.cu``) is held to
+the eager loop (``pose_optimize_plain``) at the tracker's two solve
+shapes (1,000 point rows, with and without 100 line rows, 40
+iterations): the same iterations, R and t / max(1, |t|) within 1e-5,
+in/outlier flags equal but for rows within 0.1% of their chi2
+threshold; its device time, and the eager loop's device time (in the
+profiled session) and host time a solve beside it. Phase 2 drives slice
+1's path —
 ``System.track_rgbd``, synchronous RGB-D tracking with points and lines at
 640x480, 1024 ORB features, 8 levels, 160 keylines, keyframe backend off —
 over bench.py's structured-wall scene (its sweep in N_FRAMES = 40 frames;
@@ -796,11 +803,99 @@ def _device_ops_per_call(torch, calls: dict, rounds: int = 4) -> dict:
                   f"its markers in {rounds} rounds (markers, us: {marks}; "
                   f"{us_per_cycle * 1e3:.4f} ns a cycle)")
         ops = segs[0]
+        shown = ops if len(ops) <= 8 else ops[:4]
+        more = ("" if len(ops) <= 8 else f"; ... {len(ops) - 4} more, "
+                f"{sum(us for _, us in ops):.3f} us in all")
         print(f"phase 1: {label}: one call ran {len(ops)} device op(s): "
-              + "; ".join(f"{_short(nm)} {us:.3f} us" for nm, us in ops)
-              + f" ({len(segs)} of {rounds} rounds cleanly bounded, op "
-              f"counts {[len(s) for s in segs]})")
+              + "; ".join(f"{_short(nm)} {us:.3f} us" for nm, us in shown)
+              + more + f" ({len(segs)} of {rounds} rounds cleanly bounded, "
+              f"op counts {[len(s) for s in segs]})")
     return dict(zip(labels, clean))
+
+
+# the tracker's two pose solves a frame on the benchmark's cell: the
+# motion-model solve (1,000 point rows) and the local-map solve (1,000
+# point and 100 line rows)
+POSE_SHAPES = (("motion-model solve", 1000, 0),
+               ("local-map solve", 1000, 100))
+
+
+def _pose_problems(torch) -> list:
+    """(label, cam, R0, t0, obs) at POSE_SHAPES, on the card. The seed is
+    one whose converged steps stay ~100x above the 1e-16 exit on the CPU
+    (|dx|^2 >= 9.6e-15 at both shapes), so both versions run all 40
+    iterations: a step within rounding of the exit may stop either one an
+    iteration early (tests/test_torch_pose_kernel.py)."""
+    from plvs_tpu_torch.io import synthetic
+
+    out = []
+    for label, n, nl in POSE_SHAPES:
+        cam, R0, t0, obs, _ = synthetic.pose_problem(42, n, nl,
+                                                     device="cuda")
+        out.append((f"{label} ({n} points, {nl} lines)", cam, R0, t0, obs))
+    return out
+
+
+def _hold_pose(torch, problems) -> dict:
+    """The pose kernel against the eager loop at each problem: the same
+    iterations (40: these never meet the exit), R and t / max(1, |t|)
+    within 1e-5, flags equal but for rows within 0.1% of their chi2
+    threshold at the eager loop's pose; then the kernel's device ms (back
+    to back) and host ms a launch, and the eager loop's host ms a solve.
+    Returns the worst R / t error and the times by label."""
+    from plvs_tpu_torch.solvers import pose_opt, robust
+
+    worst, times = 0.0, {}
+    for label, cam, R0, t0, obs in problems:
+        it0 = pose_opt.iteration_count()
+        R, t, inl, lin, num = pose_opt.pose_optimize(cam, R0, t0, obs)
+        torch.cuda.synchronize()
+        its = pose_opt.iteration_count() - it0
+        it1 = pose_opt.iterations
+        Rp, tp, inl_p, lin_p, num_p = pose_opt.pose_optimize_plain(
+            cam, R0, t0, obs)
+        its_p = pose_opt.iterations - it1
+        err = max(float((R - Rp).abs().max()), float(
+            (t - tp).abs().max()) / max(1.0, float(tp.norm())))
+        worst = max(worst, err)
+        res, _, _, st = pose_opt._point_residual_jac(cam, Rp, tp, obs)
+        chi2 = (res * res).sum(-1) * obs.inv_sigma2
+        thr = torch.where(st, robust.CHI2_3D, robust.CHI2_2D)
+        lres, _, _ = pose_opt._line_residual_jac(cam, Rp, tp, obs)
+        lchi2 = (lres * lres).sum(-1) * obs.line_inv_sigma2
+        near = (chi2 - thr).abs() <= 1e-3 * thr
+        lnear = (lchi2 - robust.CHI2_2D).abs() <= 1e-3 * robust.CHI2_2D
+        flips = int((inl != inl_p).sum() + (lin != lin_p).sum())
+        far = int(((inl != inl_p) & ~near).sum()
+                  + ((lin != lin_p) & ~lnear).sum())
+        print(f"phase 1: pose kernel, {label}: {its} iterations (eager "
+              f"{its_p}), max |R|, |t| error {err:.3g}, {int(num)} inliers "
+              f"(eager {int(num_p)}), {flips} flags differ, {far} of them "
+              "beyond 0.1% of the threshold")
+        if its != its_p or its != 40 or err > 1e-5 or far:
+            _fail(f"the pose kernel disagrees with the eager loop, {label}")
+        fn = (lambda c=cam, a=R0, b=t0, o=obs:
+              pose_opt.pose_optimize(c, a, b, o))
+        ms = _time_ms(torch, fn, reps=50)
+        host = []
+        for _ in range(20):
+            h0 = time.perf_counter()
+            fn()
+            host.append(time.perf_counter() - h0)
+            torch.cuda.synchronize()
+        plain = []
+        for _ in range(3):
+            h0 = time.perf_counter()
+            pose_opt.pose_optimize_plain(cam, R0, t0, obs)
+            torch.cuda.synchronize()
+            plain.append(time.perf_counter() - h0)
+        times[label] = {"ms": ms, "host_ms": float(np.median(host)) * 1e3,
+                        "plain_host_ms": float(np.median(plain)) * 1e3}
+        print(f"phase 1: pose kernel, {label}: device {ms:.6f} ms a solve "
+              f"(back to back), host {times[label]['host_ms']:.4f} ms a "
+              f"launch; eager loop {times[label]['plain_host_ms']:.2f} ms a "
+              "solve (host clock, synchronised)")
+    return {"err": worst, "times": times}
 
 
 def _bound_ms(n_bytes: float, n_ops: float):
@@ -3448,6 +3543,7 @@ def main() -> int:
     from plvs_tpu_torch.slam import System, SystemConfig
     from plvs_tpu_torch.slam.system import _quantize
     from plvs_tpu_torch.slam.tracking import OK
+    from plvs_tpu_torch.solvers import pose_opt
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -3663,17 +3759,37 @@ def main() -> int:
           f"{k3_plain_ms:.4f} ms, bound {k3_bound:.6f} ms ({k3_by}); no "
           "single PyTorch call computes census-stereo winner-take-all")
 
+    poses = _pose_problems(torch)
+    pose = _hold_pose(torch, poses)
+
     (_, a1, b1), (_, a2, b2) = k1_cases[0], k1_cases[5]
-    ops = _device_ops_per_call(torch, {
+    kernel_calls = {
         f"K1 at {a1.shape[0]}x{b1.shape[0]}":
             lambda: hamming.hamming_matrix(a1, b1),
         f"K1 at {a2.shape[0]}x{b2.shape[0]}":
             lambda: hamming.hamming_matrix(a2, b2),
         "K2": lambda: cc_labels.cc_min_labels(init_r, conn_r),
-        "K3": lambda: stereo.disparity_wta(cl0, cr0)})
-    for label, segs in ops.items():
-        if any(len(o) != 1 for o in segs):
+        "K3": lambda: stereo.disparity_wta(cl0, cr0)}
+    for label, cam_p, R0_p, t0_p, obs_p in poses:
+        kernel_calls[f"pose kernel, {label}"] = (
+            lambda c=cam_p, a=R0_p, b=t0_p, o=obs_p:
+            pose_opt.pose_optimize(c, a, b, o))
+    eager_calls = {
+        f"eager pose loop, {label}":
+            (lambda c=cam_p, a=R0_p, b=t0_p, o=obs_p:
+             pose_opt.pose_optimize_plain(c, a, b, o))
+        for label, cam_p, R0_p, t0_p, obs_p in poses}
+    ops = _device_ops_per_call(torch, {**kernel_calls, **eager_calls})
+    for label in kernel_calls:
+        if any(len(o) != 1 for o in ops[label]):
             _fail(f"one call of {label} did not run exactly one device kernel")
+    for (label, *_), eager in zip(poses, eager_calls):
+        dev_ms = [sum(us for _, us in o) * 1e-3 for o in ops[eager]]
+        pose["times"][label]["plain_device_ms"] = float(np.median(dev_ms))
+        print(f"phase 1: eager pose loop, {label}: device "
+              f"{np.median(dev_ms):.4f} ms a solve over "
+              f"{int(np.median([len(o) for o in ops[eager]]))} device ops "
+              f"(kernel {pose['times'][label]['ms']:.6f} ms)")
 
     # -- phase 2: slice 1's main path (RGB-D tracking) ---------------------
     brackets = _K1Brackets(torch, hamming)
@@ -3690,6 +3806,7 @@ def main() -> int:
     frames = list(scene.sequence(n_frames=N_FRAMES))
     hamming.launches = cc_labels.launches = stereo.launches = 0
     hamming.shapes.clear()
+    pose_opt.solves = pose_opt.kernel_solves = 0
     states, ms = [], []
     with brackets.run():
         for ts, g, d, _, _ in frames:
@@ -3699,7 +3816,8 @@ def main() -> int:
             ms.append((time.perf_counter() - t1) * 1e3)
             states.append(int(state))
     launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
-                "stereo_wta": stereo.launches}
+                "stereo_wta": stereo.launches,
+                "pose_opt": pose_opt.kernel_solves}
     by_shape = brackets.ms_by_shape()
     est = system.trajectory_tum()[:, 1:4]
     gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
@@ -3721,6 +3839,9 @@ def main() -> int:
         _fail(f"K1 launched {launches['hamming']} times on the main path")
     if launches["cc_labels"] < N_FRAMES:
         _fail(f"K2 launched {launches['cc_labels']} times on the main path")
+    if not 2 * (N_FRAMES - 1) <= pose_opt.kernel_solves == pose_opt.solves:
+        _fail(f"the pose kernel ran {pose_opt.kernel_solves} of "
+              f"{pose_opt.solves} pose solves on the main path")
     if not np.isfinite(est).all() or ate > ATE_BOUND_M:
         _fail(f"ATE {ate} m exceeds the bound {ATE_BOUND_M} m")
 
@@ -3819,6 +3940,12 @@ def main() -> int:
          "launches_phase8": launches8["stereo_wta"],
          "launches_phase9": launches9["stereo_wta"],
          **{f"launches_phase{p}": v["stereo_wta"] for p, v in later.items()}},
+        {"name": "pose_optimize", "route": "cuda",
+         "source": "plvs_tpu_torch/csrc/pose_opt.cu",
+         "replaces": None, "counterpart": "plvs_tpu/solvers/pose_opt.py:130",
+         "launches": launches["pose_opt"], "max_abs_err": pose["err"],
+         "bound_by": "latency (40 dependent block reductions and 6x6 solves)",
+         "library_ms": None, "library": None, "by_shape": pose["times"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -568,3 +568,76 @@ def cc_grids(h: int, w: int, rng: np.random.Generator):
         init = np.where(mask, np.arange(h * w).reshape(h, w), h * w)
         out.append((name, init.astype(np.int32), bits))
     return out
+
+
+def pose_problem(seed: int, n: int, n_lines: int = 0, kb8: bool = False,
+                 prior: bool = False, outliers: float = 0.2,
+                 stereo: float = 0.5, masked: float = 0.1, device="cpu"):
+    """A seeded tracking-like pose solve: (cam, R0, t0, PoseObs, the
+    prior's keyword arguments, empty without ``prior``), on ``device``.
+
+    ``n`` points 1-6 m in front of the true camera at 1 px noise (a TUM
+    pinhole at 640x480, or the KB8 rig's left camera), a ``stereo`` share
+    with uR, an ``outliers`` share moved 20-80 px (the rounds re-classify
+    them), a ``masked`` share of rows off; ``n_lines`` rows of projected 3D
+    segments; the start ~0.05 rad / 2 cm off the truth. The camera stands
+    ~5 m from the world origin, so float32 rounding of the pose keeps a
+    converged step's |dx|^2 near 1e-15, above the solve's 1e-16 exit: a
+    solve runs its 40 iterations, as on the benchmark's cell."""
+    from ..features import lines as lines_mod
+    from ..geometry import lie
+    from ..solvers import pose_opt
+
+    rng = np.random.default_rng(seed)
+    if kb8:
+        cam = cam_mod.kannala_brandt8(*RIG_KB8_LEFT, bf=34.1)
+    else:
+        cam = cam_mod.pinhole(520.9, 521.0, 325.1, 249.7, width=640,
+                              height=480, bf=40.0)
+    R_gt, t_gt = lie.se3_exp(torch.from_numpy(
+        rng.normal(0.0, [3.0, 3.0, 3.0, 0.1, 0.1, 0.1]).astype(np.float32)))
+
+    def world(m):
+        z = rng.uniform(1.0, 6.0, m)
+        Xc = np.stack([rng.uniform(-0.55, 0.55, m) * z,
+                       rng.uniform(-0.42, 0.42, m) * z, z], 1)
+        Xc = torch.from_numpy(Xc.astype(np.float32))
+        return (Xc - t_gt) @ R_gt, Xc
+
+    Xw, Xc = world(n)
+    uv = cam_mod.project(cam, Xc).numpy()
+    uv = uv + rng.normal(0.0, 1.0, uv.shape)
+    uR = uv[:, 0] - cam.bf / Xc[:, 2].numpy() + rng.normal(0.0, 1.0, n)
+    uR = np.where(rng.random(n) < stereo, uR, -1.0)
+    bad = rng.random(n) < outliers
+    uv[bad] += rng.uniform(20.0, 80.0, (int(bad.sum()), 2)) * rng.choice(
+        [-1.0, 1.0], (int(bad.sum()), 2))
+    uvr = torch.from_numpy(np.concatenate([uv, uR[:, None]], 1).astype(
+        np.float32))
+    inv_sigma2 = torch.from_numpy((1.2 ** (-2.0 * rng.integers(
+        0, 8, n))).astype(np.float32))
+    mask = torch.from_numpy(rng.random(n) >= masked)
+    kw = {}
+    if n_lines:
+        Xs, Xcs = world(n_lines)
+        Xe, Xce = world(n_lines)
+        sp = cam_mod.project(cam, Xcs) + torch.from_numpy(rng.normal(
+            0.0, 1.0, (n_lines, 2)).astype(np.float32))
+        ep = cam_mod.project(cam, Xce) + torch.from_numpy(rng.normal(
+            0.0, 1.0, (n_lines, 2)).astype(np.float32))
+        mlen = torch.linalg.norm(ep - sp, dim=-1)
+        kw = dict(line_Xs=Xs, line_Xe=Xe, line_nld=lines_mod.line_nld(sp, ep),
+                  line_inv_sigma2=torch.clamp((mlen / 40.0) ** 2, 0.1, 4.0),
+                  line_mask=torch.from_numpy(rng.random(n_lines) >= masked))
+    obs = pose_opt.make_pose_obs(Xw, uvr, inv_sigma2, mask, **kw)
+    dR, dt = lie.se3_exp(torch.from_numpy(rng.normal(
+        0.0, [0.05, 0.05, 0.05, 0.02, 0.02, 0.02]).astype(np.float32)))
+    R0, t0 = lie.se3_compose(dR, dt, R_gt, t_gt)
+    pri = {}
+    if prior:
+        info = torch.diag(torch.tensor([400.0, 400.0, 400.0, 900.0, 900.0,
+                                        900.0]))
+        pri = dict(prior_R=R_gt, prior_t=t_gt + 0.01, prior_info=info)
+    obs = pose_opt.PoseObs(*(x.to(device) for x in obs))
+    pri = {k: v.to(device) for k, v in pri.items()}
+    return cam, R0.to(device), t0.to(device), obs, pri

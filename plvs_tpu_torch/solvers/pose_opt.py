@@ -4,25 +4,41 @@ Counterpart of plvs_tpu/solvers/pose_opt.py: 4 rounds of robust
 Gauss-Newton with point (mono / stereo uR) and line (point-to-infinite-
 line) unary terms, analytic Jacobians (``cameras.project_jac``), chi2
 in/outlier re-classification between rounds, the Huber kernel dropped in
-the last round, and an optional SE3 prior. The JAX ``while_loop`` over
-Gauss-Newton iterations becomes a Python loop that stops, as it does, once
-the step is negligible — one host read of the step norm per iteration.
+the last round, and an optional SE3 prior. Each round stops, as the JAX
+``while_loop`` does, once the step is negligible.
+
+* CUDA tensors: the hand-written kernel in ``csrc/pose_opt.cu``, one
+  launch a whole solve, no host read.
+* CPU tensors: :func:`pose_optimize_plain`, the eager loop (one host read
+  of the step norm per iteration).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from ..geometry import cameras as cam_mod
 from ..geometry import lie
+from ..ops import _build
 from . import robust
 
-# pose_optimize calls, and the Gauss-Newton iterations they ran (the one
-# whose step met the exit included)
+# pose solves on either path; the Gauss-Newton iterations the plain path
+# ran (the one whose step met the exit included); launches of the kernel,
+# whose iterations add up on the device (iteration_count() reads both)
 solves = 0
 iterations = 0
+kernel_solves = 0
+_kernel_iterations: dict = {}
+
+
+def iteration_count() -> int:
+    """Gauss-Newton iterations run so far on both paths: ``iterations``
+    plus the kernel's device counters (one host read a device)."""
+    return iterations + sum(int(c.item())
+                            for c in _kernel_iterations.values())
 
 
 class PoseObs(NamedTuple):
@@ -134,7 +150,26 @@ def pose_optimize(cam: cam_mod.Camera, R0: torch.Tensor, t0: torch.Tensor,
     weighted by the [6, 6] information (the per-frame inertial term of the
     JAX package; unused by the RGB-D slice, which passes None).
 
+    CPU tensors take :func:`pose_optimize_plain`; CUDA tensors the kernel,
+    which takes float32 only and raises on anything else.
+
     Returns (R, t, point_inlier_mask, line_inlier_mask, num_inliers)."""
+    dev = obs.Xw.device
+    if dev.type == "cpu":
+        return pose_optimize_plain(cam, R0, t0, obs, rounds, iters_per_round,
+                                   line_weight, prior_R, prior_t, prior_info)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _pose_optimize_kernel(cam, R0, t0, obs, rounds, iters_per_round,
+                                 line_weight, prior_R, prior_t, prior_info)
+
+
+def pose_optimize_plain(cam: cam_mod.Camera, R0: torch.Tensor,
+                        t0: torch.Tensor, obs: PoseObs, rounds: int = 4,
+                        iters_per_round: int = 10, line_weight: float = 1.0,
+                        prior_R=None, prior_t=None, prior_info=None):
+    """The plain PyTorch version of :func:`pose_optimize`: the eager loop,
+    on any device."""
     global solves, iterations
     solves += 1
     has_prior = prior_info is not None
@@ -187,3 +222,80 @@ def pose_optimize(cam: cam_mod.Camera, R0: torch.Tensor, t0: torch.Tensor,
             lchi2 = (lres * lres).sum(-1) * obs.line_inv_sigma2
             in_lines = lok & (lchi2 <= robust.CHI2_2D)
     return R, t, in_pts, in_lines, in_pts.sum() + in_lines.sum()
+
+
+def _check(cam: cam_mod.Camera, R0, t0, obs: PoseObs, prior_R, prior_t,
+           prior_info) -> None:
+    """Raise on what the kernel does not take: a dtype other than float32
+    (bool for the masks), a wrong shape, or tensors on several devices."""
+    n, nl = obs.Xw.shape[0], obs.line_Xs.shape[0]
+    want = {"R0": (R0, (3, 3)), "t0": (t0, (3,)), "Xw": (obs.Xw, (n, 3)),
+            "uvr": (obs.uvr, (n, 3)), "inv_sigma2": (obs.inv_sigma2, (n,)),
+            "mask": (obs.mask, (n,)), "line_Xs": (obs.line_Xs, (nl, 3)),
+            "line_Xe": (obs.line_Xe, (nl, 3)),
+            "line_nld": (obs.line_nld, (nl, 3)),
+            "line_inv_sigma2": (obs.line_inv_sigma2, (nl,)),
+            "line_mask": (obs.line_mask, (nl,))}
+    # prior_R / prior_t without prior_info are ignored, as by the plain loop
+    if prior_info is not None:
+        if prior_R is None or prior_t is None:
+            raise ValueError("prior_info needs prior_R and prior_t")
+        want.update(prior_R=(prior_R, (3, 3)), prior_t=(prior_t, (3,)),
+                    prior_info=(prior_info, (6, 6)))
+    dev = obs.Xw.device
+    for name, (x, shape) in want.items():
+        dtype = torch.bool if name.endswith("mask") else torch.float32
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected {list(shape)} {dtype}, got "
+                             f"{list(x.shape)} {x.dtype}")
+        if x.device != dev:
+            raise ValueError(f"{name} on {x.device}, Xw on {dev}")
+    if cam.kind not in (cam_mod.PINHOLE, cam_mod.KANNALA_BRANDT8):
+        raise ValueError(f"unsupported camera kind {cam.kind}")
+
+
+def _pose_optimize_kernel(cam, R0, t0, obs: PoseObs, rounds, iters_per_round,
+                          line_weight, prior_R, prior_t, prior_info):
+    """One launch of ``csrc/pose_opt.cu``: the whole solve on the card,
+    on the current stream, with no host read."""
+    global solves, kernel_solves
+    _check(cam, R0, t0, obs, prior_R, prior_t, prior_info)
+    dev = obs.Xw.device
+    n, nl = obs.Xw.shape[0], obs.line_Xs.shape[0]
+    ins = [x.contiguous() for x in (
+        obs.Xw, obs.uvr, obs.inv_sigma2, obs.mask, obs.line_Xs, obs.line_Xe,
+        obs.line_nld, obs.line_inv_sigma2, obs.line_mask, R0, t0)]
+    prior = ([x.contiguous() for x in (prior_R, prior_t, prior_info)]
+             if prior_info is not None else [])
+    R = torch.empty((3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty((3,), dtype=torch.float32, device=dev)
+    in_pts = torch.empty((n,), dtype=torch.bool, device=dev)
+    in_lines = torch.empty((nl,), dtype=torch.bool, device=dev)
+    num = torch.empty((), dtype=torch.int64, device=dev)
+    acc = _kernel_iterations.get(dev)
+    if acc is None:
+        acc = _kernel_iterations[dev] = torch.zeros(
+            (1,), dtype=torch.int64, device=dev)
+    params = (ctypes.c_float * 9)(*(list(cam.params) + [0.0] * 9)[:9])
+    ptr = [x.data_ptr() for x in ins]
+    pp = [x.data_ptr() for x in prior] or [None] * 3
+    err = _lib().plvs_pose_solve(
+        *ptr[:4], n, *ptr[4:9], nl, ptr[9], ptr[10], *pp, cam.kind, params,
+        cam.bf, rounds, iters_per_round, line_weight, R.data_ptr(),
+        t.data_ptr(), in_pts.data_ptr(), in_lines.data_ptr(), num.data_ptr(),
+        acc.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "pose solve kernel")
+    solves += 1
+    kernel_solves += 1
+    return R, t, in_pts, in_lines, num
+
+
+def _lib():
+    lib = _build.load("pose_opt")
+    fn = lib.plvs_pose_solve
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.restype = i
+        fn.argtypes = [p, p, p, p, i, p, p, p, p, p, i, p, p, p, p, p, i,
+                       ctypes.POINTER(f), f, i, i, f, p, p, p, p, p, p, p]
+    return lib

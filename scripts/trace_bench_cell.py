@@ -11,8 +11,9 @@ Needs one CUDA card. Builds the cell's System, session and warm-up as
    loop (``harness.run_window``) with the spans off, on, on, off: the
    frames/s of each (the cost of recording spans);
 2. over the span-on windows: ``resolve.wait`` and ``resolve.launch`` ms a
-   resolved frame, the Gauss-Newton iterations and pose solves a resolved
-   frame (``pose_opt.iterations`` / ``solves`` diffed over the window),
+   resolved frame, the Gauss-Newton iterations, pose solves and pose
+   kernel launches a resolved frame (``pose_opt.iteration_count()``,
+   ``solves`` and ``kernel_solves`` diffed over the window),
    ``track_host_ms`` as the benchmark reads it, and the backend time nested
    inside ``resolve`` (from the spans' parent links);
 3. last, the benchmark's profiled span (a fresh session of the first
@@ -55,7 +56,8 @@ def _window(system, session, seconds, probe, spans_on):
     if spans_on:
         watch.spans = []
     system.set_stopwatch(watch)
-    it0, so0 = pose_opt.iterations, pose_opt.solves
+    it0 = pose_opt.iteration_count()
+    so0, ks0 = pose_opt.solves, pose_opt.kernel_solves
     logs, t0, t1 = harness.run_window(system, session, seconds, probe, watch)
     frames = sum(len(log.t_done) for log in logs)
     sw = watch.samples
@@ -72,8 +74,9 @@ def _window(system, session, seconds, probe, spans_on):
         out.update(
             resolve_wait_ms=per(sum(sw.get("resolve.wait", ()))),
             launch_host_ms=per(sum(sw.get("resolve.launch", ()))),
-            gn_iters_per_frame=(pose_opt.iterations - it0) / frames,
+            gn_iters_per_frame=(pose_opt.iteration_count() - it0) / frames,
             solves_per_frame=(pose_opt.solves - so0) / frames,
+            kernel_solves_per_frame=(pose_opt.kernel_solves - ks0) / frames,
             track_host_ms=per(track),
             backend_in_resolve_ms=per(nested),
             stage_ms={k: per(sum(v)) for k, v in sorted(sw.items())},
