@@ -23,7 +23,10 @@ Differences from the JAX package, all deliberate:
   after its dispatch) skips landmark slots that were culled and reused in
   between: the JAX package checks keyframe slots by identity but points
   and lines only by liveness, and writes one landmark's solved position
-  into another (``_ba_apply``).
+  into another (``_ba_apply``);
+* a line is triangulated only where it passes :func:`_verify_lines`: the
+  JAX package's checks cannot reject a wrong keyline match, and most of
+  the lines it triangulates lie in front of the camera, off every surface.
 
 The pass is staged as in the JAX package (``process_keyframe_stages``, a
 generator with two yields); ``process_keyframe`` drains it with inline
@@ -49,6 +52,10 @@ from ..ops import resolve_device
 from ..solvers import ba
 from ..utils.fetch import SyncFetch, to_host
 from .map_store import MapStore
+
+
+# line landmarks _apply_new_lines has made (a host count)
+lines_made = 0
 
 
 def _mv(R, x):
@@ -87,16 +94,63 @@ def _triangulate_lines_pair(cam, R1, t1, R2, t2, sp1, ep1, sp2, ep2, valid,
     return Xs, Xe, ok
 
 
+def _verify_lines(cam, R2b, t2b, sp2, ep2, idx, Xs, Xe,
+                  reproj_thresh: float = 3.0):
+    """The port's checks of lines triangulated against B neighbours (the
+    neighbours' matched keylines sp2 / ep2 [B, n, 2], idx [B, n], Xs / Xe
+    [B, n, 3]); returns [B, n] bool.
+
+    A departure from the JAX package, whose checks pass wrong matches: a
+    line lies on the plane of the neighbour it is triangulated with, so its
+    reprojection there is on that neighbour's image line by construction.
+    Two keylines of different lines therefore give a line wherever their
+    planes cut, and on repeated texture most of the lines the JAX package
+    makes lie a few centimetres in front of the camera (14 of 16 in
+    tests/test_torch_local_mapping.py's map; every one of a stereo room
+    orbit's). So a line is made only where (1) its projection into that
+    neighbour covers the same stretch as the neighbour's segment, the two
+    sharing at least half their union, and (2) another neighbour whose
+    keyline the same keyline matched sees both endpoints in front of it
+    and within ``reproj_thresh`` px of that keyline's line."""
+    def along(X):
+        """Pixels along each neighbour's segment, from its start point."""
+        uv = cam_mod.project(cam, _mv(R2b[:, None], X) + t2b[:, None])
+        return ((uv - sp2) * seg2).sum(-1) / len2
+
+    seg2 = ep2 - sp2
+    len2 = torch.clamp(torch.linalg.norm(seg2, dim=-1), min=1e-6)
+    a, b = along(Xs), along(Xe)
+    lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+    zero = torch.zeros_like(a)
+    shared = torch.minimum(hi, len2) - torch.maximum(lo, zero)
+    union = torch.maximum(hi, len2) - torch.minimum(lo, zero)
+    nld2 = lines_mod.line_nld(sp2, ep2)
+
+    def seen_in(X):
+        """[B (triangulated with), B (seen in), n]"""
+        Xc = _mv(R2b[None, :, None], X[:, None]) + t2b[None, :, None]
+        uv = cam_mod.project(cam, Xc)
+        r = ((nld2[None, ..., :2] * uv).sum(-1) + nld2[None, ..., 2]).abs()
+        return (Xc[..., 2] > 0) & (r < reproj_thresh)
+
+    other = ~torch.eye(idx.shape[0], dtype=torch.bool, device=idx.device)
+    seen = other[..., None] & (idx >= 0)[None] & seen_in(Xs) & seen_in(Xe)
+    return (shared >= 0.5 * union) & seen.any(1)
+
+
 def _triangulate_lines_multi(cam, R1, t1, d1, m1, sp1, ep1, R2b, t2b, d2b,
                              m2b, sp2b, ep2b, reproj_thresh: float = 3.0):
     """Line matching + plane-plane triangulation against B neighbour
-    keyframes; returns per-neighbour (idx [B, n], Xs, Xe, ok)."""
+    keyframes, verified by :func:`_verify_lines`; returns per-neighbour
+    (idx [B, n], Xs, Xe, ok)."""
     idx, _ = matching.match_nn_ratio_dist(_stacked_hamming(d1, d2b), m1, m2b,
                                           max_dist=90, ratio=0.85)
     ic = torch.clamp(idx, min=0)[..., None].expand(-1, -1, 2)
+    sp2, ep2 = sp2b.gather(1, ic), ep2b.gather(1, ic)
     Xs, Xe, ok = _triangulate_lines_pair(
-        cam, R1, t1, R2b, t2b, sp1, ep1, sp2b.gather(1, ic),
-        ep2b.gather(1, ic), idx >= 0, reproj_thresh)
+        cam, R1, t1, R2b, t2b, sp1, ep1, sp2, ep2, idx >= 0, reproj_thresh)
+    ok = ok & _verify_lines(cam, R2b, t2b, sp2, ep2, idx, Xs, Xe,
+                            reproj_thresh)
     return idx, Xs, Xe, ok
 
 
@@ -284,6 +338,7 @@ class LocalMapper:
 
     def _apply_new_lines(self, kf_id: int, ctx, fetched):
         """Apply half of create_new_lines (store mutation)."""
+        global lines_made
         st = self.store
         nbs, m1 = ctx["nbs"], ctx["m1"]
         idx_b, Xs_b, Xe_b, ok_b = fetched
@@ -294,6 +349,7 @@ class LocalMapper:
             if len(good) == 0:
                 continue
             ln_ids = st.alloc_lines(len(good))
+            lines_made += len(good)
             st.version += 1
             st.ln_Xs[ln_ids] = Xs[good]
             st.ln_Xe[ln_ids] = Xe[good]

@@ -486,18 +486,22 @@ class System:
             self.actor.apply_pending_correction()
         self._resolve_pipeline()
         c = self.config
-        with self.stopwatch.scope("frame_build"):
-            if self.cam2 is not None and self.R_lr is not None:
-                fr = frame_mod.build_frame_stereo_rig(
-                    gl, gr, self.cam, self.cam2, *self._rig_d,
-                    c.num_features, c.n_levels, c.scale)
-            else:
-                fr = frame_mod.build_frame_stereo(gl, gr, self.cam,
-                                                  c.num_features, c.n_levels,
-                                                  c.scale)
-            fl = (frame_mod.build_frame_lines_stereo(gl, gr, self.cam,
-                                                     c.max_lines)
-                  if c.use_lines else None)
+        sw, seq = self.stopwatch, self.tracker.frame_id
+        with sw.scope("frame_build"):
+            with sw.scope("frame.stereo_points", frame=seq):
+                if self.cam2 is not None and self.R_lr is not None:
+                    fr = frame_mod.build_frame_stereo_rig(
+                        gl, gr, self.cam, self.cam2, *self._rig_d,
+                        c.num_features, c.n_levels, c.scale)
+                else:
+                    fr = frame_mod.build_frame_stereo(
+                        gl, gr, self.cam, c.num_features, c.n_levels,
+                        c.scale)
+            fl = None
+            if c.use_lines:
+                with sw.scope("frame.stereo_lines", frame=seq):
+                    fl = frame_mod.build_frame_lines_stereo(
+                        gl, gr, self.cam, c.max_lines)
         with self.stopwatch.scope("track"):
             res = self.tracker.process_frame(fr, timestamp, fl)
         payload = ("stereo", gl, gr) if self.dense_mapper else None

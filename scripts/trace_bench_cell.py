@@ -13,7 +13,10 @@ Needs one CUDA card. Builds the cell's System, session and warm-up as
 2. over the span-on windows: ``resolve.wait`` and ``resolve.launch`` ms a
    resolved frame, the Gauss-Newton iterations, pose solves and pose
    kernel launches a resolved frame (``pose_opt.iteration_count()``,
-   ``solves`` and ``kernel_solves`` diffed over the window),
+   ``solves`` and ``kernel_solves`` diffed over the window), the stereo
+   builders' matched keypoints and keylines a resolved frame
+   (``frame.stereo_counts()``) and the line landmarks the backend's
+   triangulation made a keyframe (``local_mapping.lines_made``),
    ``track_host_ms`` as the benchmark reads it, and the backend time nested
    inside ``resolve`` (from the spans' parent links);
 3. last, the benchmark's profiled span (a fresh session of the first
@@ -21,7 +24,9 @@ Needs one CUDA card. Builds the cell's System, session and warm-up as
    blocking calls and device ms a launched frame (``slam_bench/spans.py``),
    the device's idle time in the span and the share of it that spans of
    the tracking thread cover, with the profiler's host operations during
-   the rest, and the longest idle gaps named by the innermost span.
+   the rest, and the longest idle gaps named by the innermost span; on a
+   stereo cell also the launch and blocking calls a frame under
+   ``frame.stereo_points`` and ``frame.stereo_lines``.
 
 The last line on standard output is one JSON object with every number.
 Imports nothing of jax or plvs_tpu.
@@ -47,6 +52,8 @@ sys.path.insert(0, ROOT)
 def _window(system, session, seconds, probe, spans_on):
     """One benchmark window from a reset System; returns its numbers and
     its stopwatch."""
+    from plvs_tpu_torch.slam import frame as frame_mod
+    from plvs_tpu_torch.slam import local_mapping
     from plvs_tpu_torch.solvers import pose_opt
     from plvs_tpu_torch.utils.profiling import Stopwatch
     from slam_bench import harness
@@ -58,8 +65,10 @@ def _window(system, session, seconds, probe, spans_on):
     system.set_stopwatch(watch)
     it0 = pose_opt.iteration_count()
     so0, ks0 = pose_opt.solves, pose_opt.kernel_solves
+    st0, lm0 = frame_mod.stereo_counts(), local_mapping.lines_made
     logs, t0, t1 = harness.run_window(system, session, seconds, probe, watch)
     frames = sum(len(log.t_done) for log in logs)
+    keyframes = sum(log.keyframes for log in logs)
     sw = watch.samples
     out = {"frames": frames, "window_s": t1 - t0,
            "frames_per_s": frames / (t1 - t0)}
@@ -78,6 +87,10 @@ def _window(system, session, seconds, probe, spans_on):
             solves_per_frame=(pose_opt.solves - so0) / frames,
             kernel_solves_per_frame=(pose_opt.kernel_solves - ks0) / frames,
             track_host_ms=per(track),
+            **{k.replace(".", "_") + "_per_frame": (v - st0[k]) / frames
+               for k, v in frame_mod.stereo_counts().items()},
+            lines_made_per_kf=((local_mapping.lines_made - lm0) / keyframes
+                               if keyframes else None),
             backend_in_resolve_ms=per(nested),
             stage_ms={k: per(sum(v)) for k, v in sorted(sw.items())},
             span_records=len(watch.spans))
@@ -143,7 +156,9 @@ def _profiled(system, session, traffic, probe):
     for (s, e), i in zip(gaps, at):
         named[sp[i].name if i >= 0 else "untimed"] += (e - s) * 1e-6
     busy_ns = int((iv[:, 1] - iv[:, 0]).sum()) if len(iv) else 0
+    stereo = _stereo_calls(sp, runtime, tid)
     return {
+        **stereo,
         "frames_fed": b - a, "frames_launched": got["frames"],
         "track_launches_per_frame": got["launches"] / n,
         "track_syncs_per_frame": got["syncs"] / n,
@@ -157,6 +172,44 @@ def _profiled(system, session, traffic, probe):
         "idle_uncovered_ms_by_host_op": dict(rest.most_common(8)),
         "idle_ms_by_innermost_span": dict(named.most_common(12)),
         "runtime_calls": len(runtime), "device_ops": len(device)}
+
+
+STEREO_SPANS = ("frame.stereo_points", "frame.stereo_lines")
+
+
+def _stereo_calls(sp, runtime, tid) -> dict:
+    """Launch and blocking calls of the tracking thread a frame inside each
+    stereo front-end span (the frames: its ``frame.stereo_points``
+    spans); nothing where the cell tracks no stereo frame."""
+    from slam_bench import spans
+
+    frames = sum(1 for s in sp if s.name == STEREO_SPANS[0]
+                 and s.thread == tid)
+    if not frames:
+        return {}
+    under = np.full(len(sp), -1, np.int64)  # the stereo span above, by index
+    for i, s in enumerate(sp):
+        if s.name in STEREO_SPANS:
+            under[i] = STEREO_SPANS.index(s.name)
+        elif s.parent >= 0:
+            under[i] = under[s.parent]
+    mine = [r for r in runtime if r[3] == tid]
+    at = spans.innermost(sp, tid, [r[1] for r in mine])
+    launches = collections.Counter()
+    syncs = collections.Counter()
+    for r, i in zip(mine, at):
+        if i < 0 or under[i] < 0:
+            continue
+        name = STEREO_SPANS[under[i]]
+        if spans.LAUNCH.match(r[0]):
+            launches[name] += 1
+        elif spans.SYNC.match(r[0]):
+            syncs[name] += 1
+    return {"stereo_frames": frames,
+            "stereo_launches_per_frame": {k: launches[k] / frames
+                                          for k in STEREO_SPANS},
+            "stereo_syncs_per_frame": {k: syncs[k] / frames
+                                       for k in STEREO_SPANS}}
 
 
 def main() -> int:

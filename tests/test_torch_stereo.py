@@ -1,7 +1,15 @@
 """The port's stereo path against the JAX package's on equal inputs: the
 census transform, kernel K3's plain version (against the Pallas kernel run
 in interpret mode), the box-method disparity, the stereo frame builders,
-and a 12-frame stereo run with dense mapping through both Systems."""
+and a 12-frame stereo run with dense mapping through both Systems.
+
+The port's stereo line builder departs from the JAX package's in how it
+matches left and right lines (``frame.build_frame_lines_stereo``'s
+docstring): its endpoint depths are held to the rendered wall, and the
+System run gives the JAX package the port's line depths at run time
+(``port_stereo_line_depths`` of tests/port_departures.py: the JAX
+builder's keylines, the port's depths), as tests/test_torch_sensor_lines.py
+repairs its pose solve."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +29,8 @@ from plvs_tpu_torch.ops import stereo as tst
 from plvs_tpu_torch.slam import System as TSystem, SystemConfig as TConfig
 from plvs_tpu_torch.slam import frame as tframe
 from plvs_tpu_torch.slam.tracking import OK
+
+from port_departures import port_stereo_line_depths
 
 CAM_ARGS = (300.0, 300.0, 160.0, 120.0)
 CAM_KW = dict(width=320, height=240, bf=24.0)
@@ -280,13 +290,13 @@ def test_build_frame_stereo():
 
 @pytest.mark.parametrize("k", [0, 10])
 def test_build_frame_lines_stereo(k):
-    """Keylines as in test_torch_features: the same valid set, endpoints
-    within 1e-2 px (the moment sums cancel in float32, and the two
-    frameworks sum in another order). Endpoint depths agree within 2%
-    where both have one: a 1e-2 px endpoint shift moves a line's disparity
-    at the other end of its lever arm by up to a few hundredths of a pixel
-    on disparities of several pixels."""
-    _, left, right, _, _ = _stereo_frames(k + 1)[k]
+    """Keylines as in test_torch_features: the same valid set. Endpoint
+    depths against the rendered wall (the port's left-right line match
+    departs from the JAX package's): at least 5 start points have one, the
+    port gets within 5% of the wall at least as many endpoints as the JAX
+    package, and every endpoint the JAX package gets within 5%."""
+    _, left, right, R, t = _stereo_frames(k + 1)[k]
+    _, wall = _scene().render(R, t)
     cam_j = jcam.pinhole(*CAM_ARGS, **CAM_KW)
     cam_t = tcam.pinhole(*CAM_ARGS, **CAM_KW)
     jl = jframe.build_frame_lines_stereo(jnp.asarray(left),
@@ -295,12 +305,16 @@ def test_build_frame_lines_stereo(k):
                                          torch.from_numpy(right), cam_t, 64)
     m = np.asarray(jl.kl.mask)
     np.testing.assert_array_equal(tl.kl.mask.numpy(), m)
-    for a in ("depth_s", "depth_e"):
+    for a, xy in (("depth_s", tl.kl.sp), ("depth_e", tl.kl.ep)):
+        xi = np.clip(np.round(xy[:, 0].numpy()).astype(int), 0, 319)
+        yi = np.clip(np.round(xy[:, 1].numpy()).astype(int), 0, 239)
+        truth = wall[yi, xi]
         jd, td = np.asarray(getattr(jl, a)), getattr(tl, a).numpy()
-        both = (jd > 0) & (td > 0)
-        assert ((jd > 0) == (td > 0)).mean() >= 0.95
-        np.testing.assert_allclose(td[both], jd[both], rtol=2e-2)
-    assert (np.asarray(jl.depth_s) > 0).sum() >= 5
+        j_good = (jd > 0) & (np.abs(jd - truth) < 0.05 * truth)
+        t_good = (td > 0) & (np.abs(td - truth) < 0.05 * truth)
+        assert t_good.sum() >= j_good.sum(), (jd, td, truth)
+        assert t_good[j_good].all(), (jd, td, truth)
+    assert (tl.depth_s.numpy() > 0).sum() >= 5
 
 
 @pytest.fixture(scope="module")
@@ -319,7 +333,9 @@ def runs():
                                         dm.mesher._block_tris.values())),
                     blocks=dm.volume.n_blocks)
 
-    jres = run(JSystem(jcam.pinhole(*CAM_ARGS, **CAM_KW), JConfig(**FLAGS)))
+    with port_stereo_line_depths():
+        jres = run(JSystem(jcam.pinhole(*CAM_ARGS, **CAM_KW),
+                           JConfig(**FLAGS)))
     tres = run(TSystem(tcam.pinhole(*CAM_ARGS, **CAM_KW), TConfig(**FLAGS),
                        device="cpu"))
     gt = np.stack([-R.T @ t for _, _, _, R, t in frames])
