@@ -905,6 +905,105 @@ def _hold_pose(torch, problems) -> dict:
     return {"err": worst, "times": times}
 
 
+# the bundle adjustment at each cell's largest local solve and at phase
+# 5's global BA: (label, synthetic.ba_problem keywords, (LM, CG
+# iterations)). The generator's windows are denser than the maps' (a point
+# seen ~3.5 times, not ~1.8), so K and M follow the cells and P falls:
+# the largest local solves of one CPU session a cell read K 7, P 2,158,
+# M 3,851, L 8, Ml 16 (euroc_stereo.mapping) and K 4, P 1,627, M 3,186,
+# L 22, Ml 46 (tum2_rgbd.mapping); phase 5's map holds 34 keyframes.
+BA_SHAPES = (
+    ("euroc_stereo.mapping local solve", dict(cams=7, points=1080, lines=8,
+                                              fixed=1, stereo=0.9), (5, 14)),
+    ("tum2_rgbd.mapping local solve", dict(cams=4, points=1550, lines=22,
+                                           fixed=1), (5, 14)),
+    ("phase 5 global BA", dict(cams=34, points=2000, fixed=1, min_obs=3),
+     (10, 30)))
+
+
+def _ba_problems(torch) -> list:
+    """(label, cam, problem on the card, solve keywords) at BA_SHAPES, the
+    windows at tests/test_torch_ba_kernel.py's jitter (every LM decision
+    clear of float32 noise)."""
+    from plvs_tpu_torch.io import synthetic
+    from plvs_tpu_torch.solvers import ba
+
+    out = []
+    for label, kw, (it, cg) in BA_SHAPES:
+        cam, prob = synthetic.ba_problem(41, jitter=5.0, **kw)
+        prob = ba.BAProblem(*(x.to("cuda") for x in prob))
+        shape = (f"K {prob.R.shape[0]} P {prob.points.shape[0]} M "
+                 f"{prob.obs_cam.shape[0]} L {prob.lines_Xs.shape[0]} Ml "
+                 f"{prob.lobs_cam.shape[0]}, {it} LM x {cg} CG")
+        out.append((f"{label} ({shape})", cam, prob,
+                    dict(num_iters=it, cg_iters=cg)))
+    return out
+
+
+def _hold_ba(torch, problems) -> dict:
+    """The BA kernel against the plain solve in float64 on the CPU at each
+    problem, as tests/test_torch_ba_kernel.py holds it (poses and points
+    within 1e-4, line endpoints 1e-3, the cost 1e-3 relative, lam equal);
+    then the kernel's device ms a solve (back to back, the row order
+    included) and host ms a call, the eager solve's host ms a solve on the
+    card (synchronised), and the operations each dispatches. Returns the
+    times by label."""
+    from plvs_tpu_torch.solvers import ba
+
+    times = {}
+    for label, cam, prob, kw in problems:
+        got = ba.bundle_adjust(cam, prob, **kw)
+        torch.cuda.synchronize()
+        ref = ba.bundle_adjust_plain(cam, ba.BAProblem(*(
+            x.cpu().double() if x.is_floating_point() else x.cpu()
+            for x in prob)), **kw)
+        errs = [float((a.cpu().double() - b).abs().max()) if a.numel()
+                else 0.0 for a, b in zip(got[:5], ref[:5])]
+        gi, ri = got[5], ref[5]
+        cost_err = abs(float(gi["cost"]) - float(ri["cost"])) / float(
+            ri["cost"])
+        lam_ok = abs(float(gi["lam"]) - float(ri["lam"])) <= 1e-6 * float(
+            ri["lam"])
+        print(f"phase 1: BA kernel, {label}: max error against the float64 "
+              f"plain solve R {errs[0]:.3g} t {errs[1]:.3g} points "
+              f"{errs[2]:.3g} lines {max(errs[3:]):.3g}, cost "
+              f"{float(gi['cost0']):.4f} -> {float(gi['cost']):.4f} (plain "
+              f"{float(ri['cost']):.4f}), lam {float(gi['lam']):.3g} (plain "
+              f"{float(ri['lam']):.3g}), {int(gi['lm_iters'])} LM "
+              f"{int(gi['cg_iters'])} CG (plain {int(ri['lm_iters'])} "
+              f"{int(ri['cg_iters'])})")
+        if (max(errs[:3]) > 1e-4 or max(errs[3:]) > 1e-3 or cost_err > 1e-3
+                or not lam_ok):
+            _fail(f"the BA kernel disagrees with the plain solve, {label}")
+        fn = (lambda c=cam, p=prob, k=kw: ba.bundle_adjust(c, p, **k))
+        plain = (lambda c=cam, p=prob, k=kw: ba.bundle_adjust_plain(c, p,
+                                                                    **k))
+        ms = _time_ms(torch, fn, reps=20)
+        host = []
+        for _ in range(10):
+            h0 = time.perf_counter()
+            fn()
+            host.append(time.perf_counter() - h0)
+            torch.cuda.synchronize()
+        plain()
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - h0) * 1e3
+        ops, plain_ops = _count_ops(torch, fn) + 1, _count_ops(torch, plain)
+        times[label] = {"ms": ms, "host_ms": float(np.median(host)) * 1e3,
+                        "plain_host_ms": plain_ms, "ops": ops,
+                        "plain_ops": plain_ops}
+        print(f"phase 1: BA kernel, {label}: device {ms:.4f} ms a solve "
+              f"(back to back, the row order included), host "
+              f"{times[label]['host_ms']:.3f} ms a call, {ops} operations "
+              f"(the row order's PyTorch ops and the launch); eager solve "
+              f"{plain_ms:.1f} ms a solve (host clock, synchronised), "
+              f"{plain_ops} operations")
+    return times
+
+
 def _bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
@@ -1026,6 +1125,7 @@ def _phase4(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
     from plvs_tpu_torch.ops import cc_labels, hamming, stereo
     from plvs_tpu_torch.slam import System, SystemConfig
     from plvs_tpu_torch.slam.tracking import OK
+    from plvs_tpu_torch.solvers import ba
     from plvs_tpu_torch.utils.profiling import Stopwatch
 
     cfg = SystemConfig(num_features=1024, n_levels=8, scale=1.2, max_kf=256,
@@ -1050,6 +1150,7 @@ def _phase4(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
     frames = _short_sweep(scene)
     hamming.launches = cc_labels.launches = stereo.launches = 0
     hamming.shapes.clear()
+    ba_solves0, ba_kernel0 = ba.solves, ba.kernel_solves
     states, ms = [], []
     with brackets.run():
         for ts, g, d, _, _ in frames:
@@ -1059,7 +1160,9 @@ def _phase4(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
             ms.append((time.perf_counter() - t1) * 1e3)
             states.append(int(state))
     launches = {"hamming": hamming.launches, "cc_labels": cc_labels.launches,
-                "stereo_wta": stereo.launches}
+                "stereo_wta": stereo.launches,
+                "ba_lm": ba.kernel_solves - ba_kernel0}
+    ba_solves = ba.solves - ba_solves0
     mix = dict(hamming.shapes)
     by_shape = brackets.ms_by_shape()
     est = system.trajectory_tum()[:, 1:4]
@@ -1086,7 +1189,8 @@ def _phase4(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
           + ", ".join(f"{k} {v:.2f}" for k, v in per_kf.items())
           + f"; backend share of the run "
           f"{per_kf['local_mapping'] * n_made / frame_ms:.4f}")
-    print(f"phase 4: {len(log)} local BA solves for {sum(gathered)} windows "
+    print(f"phase 4: {len(log)} local BA solves ({launches['ba_lm']} BA "
+          f"kernel launches) for {sum(gathered)} windows "
           f"with a problem ({len(gathered)} windows): LM iterations "
           f"{[b['lm_iters'] for b in log]}, CG iterations "
           f"{[b['cg_iters'] for b in log]}, cameras "
@@ -1111,6 +1215,9 @@ def _phase4(torch, cam, scene, brackets, k1_ms_at: dict, words) -> dict:
                   f"JAX's {ref}")
     if len(log) != sum(gathered) or not log:
         _fail(f"phase 4: {len(log)} solves for {sum(gathered)} problems")
+    if not launches["ba_lm"] == ba_solves == len(log):
+        _fail(f"phase 4: the BA kernel ran {launches['ba_lm']} of "
+              f"{ba_solves} solves for {len(log)} local BAs")
     for b in log:
         if not (np.isfinite(b["cost"]) and b["cost"] <= b["cost0"]):
             _fail(f"phase 4 local BA diverged: {b}")
@@ -3777,6 +3884,7 @@ def main() -> int:
 
     poses = _pose_problems(torch)
     pose = _hold_pose(torch, poses)
+    ba_times = _hold_ba(torch, _ba_problems(torch))
 
     (_, a1, b1), (_, a2, b2) = k1_cases[0], k1_cases[5]
     kernel_calls = {
@@ -3962,6 +4070,12 @@ def main() -> int:
          "launches": launches["pose_opt"], "max_abs_err": pose["err"],
          "bound_by": "latency (40 dependent block reductions and 6x6 solves)",
          "library_ms": None, "library": None, "by_shape": pose["times"]},
+        {"name": "bundle_adjust", "route": "cuda",
+         "source": "plvs_tpu_torch/csrc/ba_lm.cu",
+         "replaces": None, "counterpart": "plvs_tpu/solvers/ba.py:280",
+         "launches": launches4["ba_lm"],
+         "bound_by": "latency (about 3 grid barriers a CG iteration)",
+         "library_ms": None, "library": None, "by_shape": ba_times},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -641,3 +641,146 @@ def pose_problem(seed: int, n: int, n_lines: int = 0, kb8: bool = False,
     obs = pose_opt.PoseObs(*(x.to(device) for x in obs))
     pri = {k: v.to(device) for k, v in pri.items()}
     return cam, R0.to(device), t0.to(device), obs, pri
+
+
+def ba_problem(seed: int, cams: int = 6, points: int = 300, lines: int = 0,
+               fixed: int = 2, stereo: float = 1.0, outliers: float = 0.0,
+               kb8: bool = False, padded: bool = False, jitter: float = 1.0,
+               min_obs: int = 2, device="cpu"):
+    """A seeded windowed bundle adjustment: (cam, ``ba.BAProblem``) on
+    ``device``, as the local mapper's windows look.
+
+    ``cams`` cameras 0.3 m apart in rows of 8 (a raster sweep of a wall)
+    look at ``points`` points 2-5 m ahead of them, each camera seeing about
+    70% of those in its image at 0.3 px noise, a ``stereo`` share of the
+    rows with uR; points seen fewer than ``min_obs`` times are masked,
+    without rows. ``outliers``: a share of the rows of points seen 4+ times
+    moved 15-40 px. ``lines`` segments of 0.8 m seen by every camera, 4 in
+    5 rows with both endpoint depths. The first ``fixed`` cameras are the gauge; the others start ~0.01 rad / 3 cm
+    off and the landmarks ~5 cm / 3 cm off, each times ``jitter``.
+    ``padded`` adds what the mapper's fixed shapes leave: two masked
+    identity cameras, 84 masked points, 200 masked rows and a masked line
+    block."""
+    from ..geometry import lie
+    from ..solvers import ba
+
+    rng = np.random.default_rng(seed)
+    if kb8:
+        cam = cam_mod.kannala_brandt8(*RIG_KB8_LEFT, bf=34.1)
+    else:
+        cam = cam_mod.pinhole(520.0, 520.0, 320.0, 240.0, width=640,
+                              height=480, bf=40.0)
+    K, P, L = cams, points, lines
+    step, row = 0.3, 8
+
+    def so3(s):
+        return lie.so3_exp(torch.from_numpy(
+            (rng.normal(size=3) * s).astype(np.float32))).numpy()
+
+    R_gt = np.stack([so3(0.05) for _ in range(K)])
+    t_gt = (np.stack([[-step * (k % row), -step * (k // row), 0.0]
+                      for k in range(K)])
+            + rng.normal(size=(K, 3)) * 0.02).astype(np.float32)
+    x_end, y_end = step * (min(K, row) - 1), step * ((K - 1) // row)
+    X = np.stack([rng.uniform(-2.0, 2.0 + x_end, P),
+                  rng.uniform(-1.5, 1.5 + y_end, P),
+                  rng.uniform(2.0, 5.0, P)], -1).astype(np.float32)
+
+    def proj(k, Xw):
+        Xc = torch.from_numpy((Xw @ R_gt[k].T + t_gt[k]).astype(np.float32))
+        return cam_mod.project(cam, Xc).numpy(), Xc[:, 2].numpy()
+
+    rows = []
+    for k in range(K):
+        uv, z = proj(k, X)
+        vis = ((uv[:, 0] >= 0) & (uv[:, 0] < 640) & (uv[:, 1] >= 0)
+               & (uv[:, 1] < 480) & (z > 0.5) & (rng.uniform(size=P) > 0.3))
+        for i in np.nonzero(vis)[0]:
+            u = uv[i] + rng.normal(size=2) * 0.3
+            uR = (u[0] - cam.bf / z[i] + rng.normal() * 0.3
+                  if rng.uniform() < stereo else -1.0)
+            rows.append((k, i, u[0], u[1], uR))
+    rows = np.asarray(rows, np.float64).reshape(-1, 5)
+    n_obs = np.bincount(rows[:, 1].astype(int), minlength=P)
+    rows = rows[n_obs[rows[:, 1].astype(int)] >= min_obs]
+    M = len(rows)
+    uvr = rows[:, 2:5].astype(np.float32)
+    if outliers > 0:
+        many = np.nonzero(n_obs[rows[:, 1].astype(int)] >= 4)[0]
+        bad = rng.choice(many, int(outliers * M), replace=False)
+        uvr[bad, :2] += (rng.uniform(15, 40, (len(bad), 2))
+                         * rng.choice([-1, 1], (len(bad), 2)))
+    R0, t0 = R_gt.copy(), t_gt.copy()
+    for k in range(fixed, K):
+        R0[k] = so3(0.01 * jitter) @ R_gt[k]
+        t0[k] = t_gt[k] + rng.normal(size=3) * 0.03 * jitter
+    f = dict(R=R0, t=t0, fixed_cam=np.arange(K) < fixed,
+             cam_mask=np.ones(K, bool),
+             points=(X + rng.normal(size=(P, 3)) * 0.05 * jitter).astype(
+                 np.float32),
+             point_mask=n_obs >= min_obs,
+             obs_cam=rows[:, 0].astype(np.int64),
+             obs_pt=rows[:, 1].astype(np.int64), obs_uvr=uvr,
+             obs_inv_sigma2=(1.2 ** (-2.0 * rng.integers(0, 3, M))).astype(
+                 np.float32), obs_mask=np.ones(M, bool))
+    if L:
+        Xs = np.stack([rng.uniform(-2.0, 2.0 + x_end, L),
+                       rng.uniform(-1.5, 1.5 + y_end, L),
+                       rng.uniform(2.0, 4.5, L)], -1).astype(np.float32)
+        # directions with a depth component: an endpoint sliding along a
+        # segment square to the rays would be fixed by the damping alone
+        d = rng.normal(size=(L, 3))
+        d[:, 2] = np.sign(d[:, 2]) * (1.0 + np.abs(d[:, 2]))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        Xe = (Xs + 0.8 * d).astype(np.float32)
+        lrows = []
+        for k in range(K):
+            (sp, zs), (ep, ze) = proj(k, Xs), proj(k, Xe)
+            for j in range(L):
+                dv = ep[j] - sp[j]
+                n = np.array([-dv[1], dv[0]]) / np.linalg.norm(dv)
+                depth = (zs[j], ze[j]) if (k + j) % 5 else (0.0, 0.0)
+                lrows.append((k, j, n[0], n[1],
+                              -n @ sp[j] + rng.normal() * 0.3, *depth))
+        lrows = np.asarray(lrows, np.float64)
+        Ml = len(lrows)
+        f.update(
+            lines_Xs=(Xs + rng.normal(size=(L, 3)) * 0.03 * jitter).astype(
+                np.float32),
+            lines_Xe=(Xe + rng.normal(size=(L, 3)) * 0.03 * jitter).astype(
+                np.float32),
+            line_mask=np.ones(L, bool),
+            lobs_cam=lrows[:, 0].astype(np.int64),
+            lobs_line=lrows[:, 1].astype(np.int64),
+            lobs_nld=lrows[:, 2:5].astype(np.float32),
+            lobs_inv_sigma2=np.ones(Ml, np.float32),
+            lobs_mask=np.ones(Ml, bool),
+            lobs_depth=lrows[:, 5:7].astype(np.float32))
+    if padded:
+        def pad(name, n, fill):
+            a = f[name]
+            f[name] = np.concatenate(
+                [a, np.full((n,) + a.shape[1:], fill, a.dtype)])
+
+        pad("R", 2, 0.0)
+        f["R"][K:] = np.eye(3, dtype=np.float32)
+        pad("t", 2, 0.0)
+        pad("fixed_cam", 2, True)
+        pad("cam_mask", 2, False)
+        pad("points", 84, 0.0)
+        pad("point_mask", 84, False)
+        for name, fill in (("obs_cam", 0), ("obs_pt", 0), ("obs_uvr", -1.0),
+                           ("obs_inv_sigma2", 1.0), ("obs_mask", False)):
+            pad(name, 200, fill)
+        if not L:
+            f.update(lines_Xs=np.zeros((16, 3), np.float32),
+                     lines_Xe=np.zeros((16, 3), np.float32),
+                     line_mask=np.zeros(16, bool),
+                     lobs_cam=np.zeros(64, np.int64),
+                     lobs_line=np.zeros(64, np.int64),
+                     lobs_nld=np.zeros((64, 3), np.float32),
+                     lobs_inv_sigma2=np.ones(64, np.float32),
+                     lobs_mask=np.zeros(64, bool),
+                     lobs_depth=np.zeros((64, 2), np.float32))
+    return cam, ba.make_problem(**{k: torch.from_numpy(v).to(device)
+                                   for k, v in f.items()})

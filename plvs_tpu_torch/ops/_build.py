@@ -1,9 +1,10 @@
 """Build the CUDA sources under ``plvs_tpu_torch/csrc`` and load them.
 
-Each ``csrc/<name>.cu`` is a self-contained file with a plain C interface
-(no PyTorch headers), compiled by ``nvcc`` for sm_90a into its own shared
-library under ``plvs_tpu_torch/_build/`` and loaded with ctypes. The
-library's file name carries a hash of the source, so an edited source is
+Each ``csrc/<name>.cu`` is a file with a plain C interface (no PyTorch
+headers; it may include the shared ``csrc/*.cuh`` device helpers),
+compiled by ``nvcc`` for sm_90a into its own shared library under
+``plvs_tpu_torch/_build/`` and loaded with ctypes. The library's file name
+carries a hash of the source and the headers, so an edited source is
 rebuilt and a stale library is never loaded. ``build_all`` starts one nvcc
 per source at once and waits for all of them.
 
@@ -43,8 +44,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header it may include
+    for f in [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                     if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

@@ -26,6 +26,16 @@ state no longer changes, so the result is the one the ``while_loop`` gives,
 and the solve reads nothing back to the host. ``info`` also carries the LM
 and CG iterations that were active.
 
+Where a solve runs (:func:`bundle_adjust`):
+
+* CUDA float32 tensors in the local BA's formulation (``scatter_free=True``,
+  ``schur_direct=False``): the hand-written kernel in ``csrc/ba_lm.cu``, one
+  launch a whole solve, no host read; the wrapper orders the rows once (one
+  stable sort of their keys and the CSR offsets of every block).
+* CPU tensors, ``scatter_free=False``, ``schur_direct=True`` and the
+  sharded backend's hook (``_bundle_adjust(obs=...)``):
+  :func:`bundle_adjust_plain`, the eager loops below.
+
 Fixed-capacity convention: arrays are padded; masks mark real entries;
 fixed cameras (the gauge) are masked through ``fixed_cam``. Index columns
 are int64 (the JAX package's are int32).
@@ -33,13 +43,40 @@ are int64 (the JAX package's are int32).
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from ..geometry import cameras as cam_mod
 from ..geometry import lie
+from ..ops import _build
 from . import robust
+
+# solves on every path and launches of the kernel; the LM and CG iterations
+# of every solve add up on the device, one counter a device
+# (iteration_count() reads them)
+solves = 0
+kernel_solves = 0
+_iterations: dict = {}
+
+
+def iteration_count() -> tuple[int, int]:
+    """LM and CG iterations run so far on every path (one host read a
+    device)."""
+    lm = cg = 0
+    for acc in _iterations.values():
+        a, b = acc.tolist()
+        lm, cg = lm + a, cg + b
+    return lm, cg
+
+
+def _counter(dev: torch.device) -> torch.Tensor:
+    acc = _iterations.get(dev)
+    if acc is None:
+        acc = _iterations[dev] = torch.zeros((2,), dtype=torch.int64,
+                                             device=dev)
+    return acc
 
 
 class BAProblem(NamedTuple):
@@ -401,6 +438,10 @@ def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, num_iters: int = 10,
     info) with info = dict(cost0, cost, lam, lm_iters, cg_iters), all device
     tensors.
 
+    CUDA tensors with ``scatter_free=True`` and ``schur_direct=False`` take
+    the kernel, which takes float32 only and raises on anything else; every
+    other call takes :func:`bundle_adjust_plain` (module docstring).
+
     ``scatter_free=False`` takes the segment-sum formulation (module
     docstring). ``schur_direct=True`` builds the explicit reduced camera
     system each LM step: Jacobi scaling of every block to unit diagonal,
@@ -413,6 +454,23 @@ def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, num_iters: int = 10,
     (K up to ~64), as the JAX package does. A factor that is not positive
     definite reads NaN (as ``cho_factor`` does), and the LM rejects the
     step."""
+    dev = prob.R.device
+    if dev.type == "cuda" and scatter_free and not schur_direct:
+        return _bundle_adjust_kernel(cam, prob, num_iters, cg_iters, lam0,
+                                     line_weight)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return bundle_adjust_plain(cam, prob, num_iters, cg_iters, lam0,
+                               line_weight, scatter_free, schur_direct)
+
+
+def bundle_adjust_plain(cam: cam_mod.Camera, prob: BAProblem,
+                        num_iters: int = 10, cg_iters: int = 40,
+                        lam0: float = 1e-3, line_weight: float = 1.0,
+                        scatter_free: bool = True,
+                        schur_direct: bool = False):
+    """The plain PyTorch version of :func:`bundle_adjust`: the eager loops,
+    on any device."""
     return _bundle_adjust(cam, prob, num_iters, cg_iters, lam0, line_weight,
                           scatter_free, schur_direct)
 
@@ -421,6 +479,7 @@ def _bundle_adjust(cam, prob: BAProblem, num_iters, cg_iters, lam0,
                    line_weight, scatter_free, schur_direct, obs=None):
     """``bundle_adjust``; ``obs`` replaces the point observations' row
     reductions (:class:`Reductions`), the sharded backend's hook."""
+    global solves
     K = prob.R.shape[0]
     P = prob.points.shape[0]
     L = prob.lines_Xs.shape[0]
@@ -656,4 +715,118 @@ def _bundle_adjust(cam, prob: BAProblem, num_iters, cg_iters, lam0,
     R, t, points, lXs, lXe, lam, cost = state
     info = {"cost0": cost0, "cost": cost, "lam": lam, "lm_iters": lm_n,
             "cg_iters": cg_n}
+    solves += 1
+    _counter(dev).add_(torch.stack([lm_n, cg_n]).to(torch.int64))
     return R, t, points, lXs, lXe, info
+
+
+# ---------------------------------------------------------------------------
+# the kernel (csrc/ba_lm.cu)
+# ---------------------------------------------------------------------------
+
+def _row_order(prob: BAProblem):
+    """Every row table ordered by its landmark and by its camera, for the
+    kernel's segment sums: one stable sort of the rows' keys (the point
+    rows' points, then their cameras, then the line rows' lines and their
+    cameras, each key range after the one before) and the CSR offsets of
+    every key. Returns (order [2M + 2Ml] int64: positions in that key
+    vector, offsets [P + 2K + L + 1] int64). Line rows count only where the
+    problem has lines (as in the plain solve)."""
+    K, P, L = prob.R.shape[0], prob.points.shape[0], prob.lines_Xs.shape[0]
+    keys = [prob.obs_pt, prob.obs_cam + P]
+    if L > 0:
+        keys += [prob.lobs_line + (P + K), prob.lobs_cam + (P + K + L)]
+    # int32 keys: half the radix passes of int64 ones
+    sorted_keys, order = torch.sort(torch.cat(keys).to(torch.int32),
+                                    stable=True)
+    off = torch.searchsorted(sorted_keys, torch.arange(
+        P + 2 * K + L + 1, dtype=torch.int32, device=prob.R.device))
+    return order, off
+
+
+_KERNEL_FLOATS = ("R", "t", "points", "obs_uvr", "obs_inv_sigma2",
+                  "lines_Xs", "lines_Xe", "lobs_nld", "lobs_inv_sigma2",
+                  "lobs_depth")
+_KERNEL_INDICES = ("obs_cam", "obs_pt", "lobs_cam", "lobs_line")
+
+
+def _check(cam: cam_mod.Camera, prob: BAProblem) -> None:
+    """Raise on what the kernel does not take: a dtype other than float32
+    (bool for the masks, int64 for the index columns), a wrong shape, or
+    tensors on several devices."""
+    K, P, M = prob.R.shape[0], prob.points.shape[0], prob.obs_cam.shape[0]
+    L, Ml = prob.lines_Xs.shape[0], prob.lobs_cam.shape[0]
+    want = {"R": (K, 3, 3), "t": (K, 3), "fixed_cam": (K,),
+            "cam_mask": (K,), "points": (P, 3), "point_mask": (P,),
+            "obs_cam": (M,), "obs_pt": (M,), "obs_uvr": (M, 3),
+            "obs_inv_sigma2": (M,), "obs_mask": (M,), "lines_Xs": (L, 3),
+            "lines_Xe": (L, 3), "line_mask": (L,), "lobs_cam": (Ml,),
+            "lobs_line": (Ml,), "lobs_nld": (Ml, 3),
+            "lobs_inv_sigma2": (Ml,), "lobs_mask": (Ml,),
+            "lobs_depth": (Ml, 2)}
+    dev = prob.R.device
+    for name, shape in want.items():
+        x = getattr(prob, name)
+        dtype = (torch.float32 if name in _KERNEL_FLOATS else torch.int64
+                 if name in _KERNEL_INDICES else torch.bool)
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected {list(shape)} {dtype}, got "
+                             f"{list(x.shape)} {x.dtype}")
+        if x.device != dev:
+            raise ValueError(f"{name} on {x.device}, R on {dev}")
+    if cam.kind not in (cam_mod.PINHOLE, cam_mod.KANNALA_BRANDT8):
+        raise ValueError(f"unsupported camera kind {cam.kind}")
+
+
+def _bundle_adjust_kernel(cam, prob: BAProblem, num_iters, cg_iters, lam0,
+                          line_weight):
+    """One launch of ``csrc/ba_lm.cu``: the whole solve on the card, on the
+    current stream, with no host read."""
+    global solves, kernel_solves
+    _check(cam, prob)
+    dev = prob.R.device
+    K, P, M = prob.R.shape[0], prob.points.shape[0], prob.obs_cam.shape[0]
+    L = prob.lines_Xs.shape[0]
+    Ml = prob.lobs_cam.shape[0] if L > 0 else 0
+    order, off = _row_order(prob)
+    lib = _lib()
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = [torch.empty((K, 3, 3), **f32), torch.empty((K, 3), **f32),
+           torch.empty((P, 3), **f32), torch.empty((L, 3), **f32),
+           torch.empty((L, 3), **f32)]
+    info_f = torch.empty((3,), **f32)
+    info_i = torch.empty((2,), dtype=torch.int32, device=dev)
+    ws = torch.empty((lib.plvs_ba_workspace_floats(K, P, M, L, Ml),), **f32)
+    ins = [x.contiguous() for x in (
+        prob.R, prob.t, prob.fixed_cam, prob.cam_mask, prob.points,
+        prob.point_mask, prob.obs_cam, prob.obs_pt, prob.obs_uvr,
+        prob.obs_inv_sigma2, prob.obs_mask, prob.lines_Xs, prob.lines_Xe,
+        prob.line_mask, prob.lobs_cam, prob.lobs_line, prob.lobs_nld,
+        prob.lobs_inv_sigma2, prob.lobs_mask, prob.lobs_depth)]
+    tensors = ins + [order, off, ws] + out + [info_f, info_i, _counter(dev)]
+    ptr = (ctypes.c_uint64 * len(tensors))(*(x.data_ptr() for x in tensors))
+    dims = (ctypes.c_int * 8)(K, P, M, L, Ml, cam.kind, num_iters, cg_iters)
+    bf_line = cam.bf if cam.bf > 0 else float(cam.params[0]) * 0.1
+    fp = (ctypes.c_float * 13)(*(list(cam.params) + [0.0] * 9)[:9], cam.bf,
+                               bf_line, lam0, line_weight)
+    err = lib.plvs_ba_solve(ptr, dims, fp,
+                            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "bundle adjustment kernel")
+    solves += 1
+    kernel_solves += 1
+    info = {"cost0": info_f[0], "cost": info_f[1], "lam": info_f[2],
+            "lm_iters": info_i[0], "cg_iters": info_i[1]}
+    return (*out, info)
+
+
+def _lib():
+    lib = _build.load("ba_lm")
+    if lib.plvs_ba_solve.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.plvs_ba_workspace_floats.restype = ctypes.c_longlong
+        lib.plvs_ba_workspace_floats.argtypes = [i, i, i, i, i]
+        lib.plvs_ba_solve.restype = i
+        lib.plvs_ba_solve.argtypes = [ctypes.POINTER(ctypes.c_uint64),
+                                      ctypes.POINTER(i),
+                                      ctypes.POINTER(ctypes.c_float), p]
+    return lib
